@@ -1,0 +1,69 @@
+"""Configuration of the score path, copied from ``truely_tpu/config.py``.
+
+Only the fields this package reads are kept, with the same names and
+defaults.  The TPU layout switches (folded P-Net, Pallas NMS/crops/YUV) are
+left out: on the card the hand-written kernels always run.  The semantic
+switches that change results stay: ``pyramid_cascade``,
+``stage_crop_quant``, ``compute_dtype``, the thresholds, the capacities and
+the NMS round cap.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Tuple
+
+
+@dataclasses.dataclass(frozen=True)
+class MTCNNConfig:
+    """Cascade parameters (facenet_pytorch MTCNN defaults)."""
+
+    min_face_size: int = 20
+    # Stage score thresholds for P-Net / R-Net / O-Net.
+    thresholds: Tuple[float, float, float] = (0.6, 0.7, 0.7)
+    # Pyramid decimation factor between scales.
+    scale_factor: float = 0.709
+    # NMS IoU thresholds: per-scale P-Net, cross-scale P-Net, R-Net, O-Net.
+    nms_thresholds: Tuple[float, float, float, float] = (0.5, 0.7, 0.7, 0.7)
+    # Round cap of the parallel-greedy NMS fixpoint (0 = run to
+    # convergence); deeper chains get the deterministic tail rule.
+    nms_max_rounds: int = 64
+    # bf16 only: resample each pyramid level from the previous level
+    # instead of the full frame.  float32 keeps the exact one-shot resample.
+    pyramid_cascade: bool = True
+    # bf16 only: snap R-Net/O-Net crop boxes to a quant-px grid (exact
+    # integer semantics on the block-summed frame).  1 = exact crops.
+    stage_crop_quant: int = 4
+    # Fixed capacities: one global top-K over every pyramid cell, then
+    # after R-Net and after O-Net.
+    pnet_topk_total: int = 256
+    rnet_capacity: int = 64
+    onet_capacity: int = 32
+    # Select the largest-area face (facenet_pytorch select_largest=True).
+    select_largest: bool = True
+
+
+@dataclasses.dataclass(frozen=True)
+class DetectorConfig:
+    """End-to-end visual detector parameters."""
+
+    mtcnn: MTCNNConfig = MTCNNConfig()
+    # Cosine similarity below which a frame pair is "drifting".
+    similarity_threshold: float = 0.99
+    # Consecutive drifting sampled frames before flagging.
+    run_length_threshold: int = 15
+    # Face-crop side fed to FaceNet (the reference feeds 80, not 160).
+    crop_size: int = 80
+    # Sampling interval is max(1, int(fps / sample_hz)).
+    sample_hz: int = 7
+    # Device batch of sampled frames.
+    frame_batch: int = 32
+    # BGR input to MTCNN and /255 crop scaling without standardization.
+    reference_compat: bool = True
+    # Compute dtype of the conv stacks (params stay float32).
+    compute_dtype: str = "bfloat16"
+    # Long-video weighting kicks in above this many seconds.
+    long_video_seconds: int = 30
+
+    def sample_interval(self, fps: int) -> int:
+        return max(1, int(fps / self.sample_hz))

@@ -1,0 +1,75 @@
+"""Layer pieces shared by the nets (counterpart of ``truely_tpu/models/layers.py``).
+
+The nets keep NCHW inside (PyTorch's layout) and take and return NHWC at
+their public functions, as the JAX functions do.  Convolutions and dense
+layers run in the compute dtype and hand float32 on, as the JAX layers do
+with ``preferred_element_type=float32``: batchnorm, PReLU and the residual
+sums stay in float32.  Kept details of the upstream checkpoints: batchnorm
+eps 1e-3, per-channel PReLU, ceil-mode max-pool in the MTCNN nets, and the
+(W, H, C) flatten order of the MTCNN dense layers.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+BN_EPS = 1e-3
+
+
+class FrozenBN(nn.Module):
+    """Inference batchnorm in float32: x * scale + (beta - mean * scale)."""
+
+    def __init__(self, c: int, eps: float = BN_EPS):
+        super().__init__()
+        self.eps = eps
+        self.register_buffer("gamma", torch.ones(c))
+        self.register_buffer("beta", torch.zeros(c))
+        self.register_buffer("mean", torch.zeros(c))
+        self.register_buffer("var", torch.ones(c))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        scale = self.gamma * torch.rsqrt(self.var + self.eps)
+        shift = self.beta - self.mean * scale
+        shape = (1, -1) + (1,) * (x.dim() - 2)  # channel axis 1
+        return x.float() * scale.view(shape) + shift.view(shape)
+
+
+def conv(m: nn.Conv2d, x: torch.Tensor, dtype: Optional[torch.dtype]) -> torch.Tensor:
+    """``m`` applied with input and weights cast to ``dtype``; float32 out,
+    the bias added in float32 as the JAX layer adds it."""
+    dt = dtype or torch.float32
+    out = F.conv2d(x.to(dt), m.weight.to(dt), None, m.stride, m.padding).float()
+    return out if m.bias is None else out + m.bias.view(1, -1, 1, 1)
+
+
+def dense(m: nn.Linear, x: torch.Tensor, dtype: Optional[torch.dtype]) -> torch.Tensor:
+    dt = dtype or torch.float32
+    out = F.linear(x.to(dt), m.weight.to(dt)).float()
+    return out if m.bias is None else out + m.bias
+
+
+def prelu(m: nn.PReLU, x: torch.Tensor) -> torch.Tensor:
+    return F.prelu(x, m.weight.to(x.dtype))
+
+
+def max_pool_ceil(x: torch.Tensor, window: int, stride: int) -> torch.Tensor:
+    return F.max_pool2d(x, window, stride, ceil_mode=True)
+
+
+def flatten_mtcnn(x: torch.Tensor) -> torch.Tensor:
+    """Flatten NCHW maps in the (W, H, C) order the MTCNN dense layers
+    expect (the upstream ``permute(0, 3, 2, 1)``)."""
+    return x.permute(0, 3, 2, 1).reshape(x.shape[0], -1)
+
+
+def to_nchw(x: torch.Tensor) -> torch.Tensor:
+    """NHWC -> NCHW view (channels-last in memory, which cuDNN takes as is)."""
+    return x.permute(0, 3, 1, 2)
+
+
+def l2_normalize(x: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
+    return x / torch.linalg.vector_norm(x, dim=-1, keepdim=True).clamp_min(eps)

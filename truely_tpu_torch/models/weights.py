@@ -1,0 +1,154 @@
+"""Weights of the five nets: conversion from the JAX param trees, the flat
+``.npz`` reader, and a seeded init (counterpart of
+``truely_tpu/models/weights.py``).
+
+A param tree is the JAX package's nested dict/list of arrays, keyed by the
+upstream module names.  The modules here use the same names, so loading is
+a walk: conv ``{"w": HWIO, "b"}`` -> ``nn.Conv2d`` (OIHW); dense
+``{"w": (in, out), "b"}`` -> ``nn.Linear`` ((out, in)); ``{"gamma",
+"beta", "mean", "var"}`` -> ``FrozenBN``; ``{"alpha"}`` -> ``nn.PReLU``.
+"""
+
+from __future__ import annotations
+
+import math
+import os
+from typing import Dict, Mapping, Optional, Tuple
+
+import numpy as np
+import torch
+import torch.nn as nn
+
+from truely_tpu_torch.models.inception_resnet_v1 import InceptionResnetV1
+from truely_tpu_torch.models.landmark68 import Landmark68
+from truely_tpu_torch.models.layers import FrozenBN
+from truely_tpu_torch.models.mtcnn_nets import ONet, PNet, RNet
+
+WEIGHTS_ENV = "TRUELY_TPU_WEIGHTS"
+# The JAX package's seeds (truely_tpu/models/weights.py:_SEEDS).
+SEEDS = {"pnet": 101, "rnet": 102, "onet": 103, "facenet": 104, "landmark68": 105}
+NETS = {"pnet": PNet, "rnet": RNet, "onet": ONet, "facenet": InceptionResnetV1,
+        "landmark68": Landmark68}
+_SEP = "/"
+_BN_KEYS = {"gamma", "beta", "mean", "var"}
+
+
+def load_params(path: str):
+    """Read the flat ``.npz`` that ``truely_tpu.models.weights.save_params``
+    writes: keys are paths joined with '/', integer segments are list
+    indices.  Returns the nested tree of numpy arrays."""
+    root: dict = {}
+    with np.load(path) as z:
+        for key in z.files:
+            parts = key.split(_SEP)
+            node = root
+            for p in parts[:-1]:
+                node = node.setdefault(p, {})
+            node[parts[-1]] = z[key]
+
+    def listify(node):
+        if not isinstance(node, dict):
+            return node
+        keys = list(node)
+        if keys and all(k.isdigit() for k in keys):
+            return [listify(node[str(i)]) for i in range(len(keys))]
+        return {k: listify(v) for k, v in node.items()}
+
+    return listify(root)
+
+
+def _copy(dst: torch.Tensor, src, path: str) -> None:
+    arr = torch.from_numpy(np.array(src, dtype=np.float32, order="C"))
+    if tuple(arr.shape) != tuple(dst.shape):
+        raise ValueError(f"{path}: shape {tuple(arr.shape)} != module {tuple(dst.shape)}")
+    with torch.no_grad():
+        dst.copy_(arr)
+
+
+def _load(module: nn.Module, node, path: str) -> int:
+    """Copy ``node`` into ``module``; returns the number of tensors set."""
+    if isinstance(node, (list, tuple)):
+        return sum(_load(module[i], v, f"{path}/{i}") for i, v in enumerate(node))
+    keys = set(node)
+    if keys <= {"w", "b"}:
+        w = np.asarray(node["w"])
+        w = w.transpose(3, 2, 0, 1) if w.ndim == 4 else w.T  # HWIO->OIHW, (in,out)->(out,in)
+        _copy(module.weight, w, path + "/w")
+        if "b" in keys:
+            _copy(module.bias, node["b"], path + "/b")
+        elif module.bias is not None:
+            raise ValueError(f"{path}: tree has no bias, module has one")
+        return len(keys)
+    if keys == _BN_KEYS:
+        for k in sorted(keys):
+            _copy(getattr(module, k), node[k], f"{path}/{k}")
+        return 4
+    if keys == {"alpha"}:
+        _copy(module.weight, node["alpha"], path + "/alpha")
+        return 1
+    return sum(_load(getattr(module, k), v, f"{path}/{k}") for k, v in node.items())
+
+
+def params_from_numpy(name: str, tree) -> nn.Module:
+    """The net ``name`` with the weights of a JAX param tree (as numpy or
+    anything ``np.asarray`` takes).  Raises on a shape mismatch and on any
+    module tensor the tree leaves unset."""
+    module = NETS[name]()
+    n = _load(module, tree, name)
+    expected = len(module.state_dict())
+    if n != expected:
+        raise ValueError(f"{name}: tree sets {n} tensors, module has {expected}")
+    return module.eval()
+
+
+def init_params(name: str, seed: Optional[int] = None) -> nn.Module:
+    """Seeded init with the JAX package's distributions: convs and dense
+    weights N(0, 2/fan_in), zero biases, identity batchnorm, PReLU 0.25.
+
+    The values differ from the JAX seeded init: ``torch.Generator`` and
+    ``jax.random`` give different numbers for the same seed.  Tests that
+    compare the two packages convert the JAX trees with
+    :func:`params_from_numpy` instead.
+    """
+    module = NETS[name]()
+    gen = torch.Generator().manual_seed(SEEDS[name] if seed is None else seed)
+    with torch.no_grad():
+        for m in module.modules():
+            if isinstance(m, (nn.Conv2d, nn.Linear)):
+                fan_in = m.weight[0].numel()
+                m.weight.normal_(0.0, 1.0, generator=gen).mul_(math.sqrt(2.0 / fan_in))
+                if m.bias is not None:
+                    m.bias.zero_()
+            elif isinstance(m, nn.PReLU):
+                m.weight.fill_(0.25)
+            elif isinstance(m, FrozenBN):
+                m.gamma.fill_(1.0)
+                m.beta.zero_()
+                m.mean.zero_()
+                m.var.fill_(1.0)
+    return module.eval()
+
+
+def load_or_init(name: str, weights_dir: Optional[str] = None) -> Tuple[nn.Module, bool]:
+    """``<weights_dir>/<name>.npz`` (``weights_dir`` defaults to
+    ``$TRUELY_TPU_WEIGHTS``) if present, else the seeded init.  Returns
+    (module, loaded)."""
+    weights_dir = weights_dir or os.environ.get(WEIGHTS_ENV, "")
+    if weights_dir:
+        path = os.path.join(weights_dir, f"{name}.npz")
+        if os.path.exists(path):
+            return params_from_numpy(name, load_params(path)), True
+    return init_params(name), False
+
+
+def load_all(params: Optional[Mapping[str, object]] = None,
+             weights_dir: Optional[str] = None) -> Dict[str, nn.Module]:
+    """All five nets: from ``params`` (name -> param tree) where given,
+    else from :func:`load_or_init`."""
+    out = {}
+    for name in NETS:
+        if params is not None and name in params:
+            out[name] = params_from_numpy(name, params[name])
+        else:
+            out[name] = load_or_init(name, weights_dir)[0]
+    return out

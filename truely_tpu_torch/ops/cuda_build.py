@@ -1,0 +1,124 @@
+"""Build the package's CUDA kernels with nvcc and load them with ctypes.
+
+Each ``csrc/<name>.cu`` has a plain C interface and no PyTorch headers, so
+``nvcc`` builds it in seconds; the sources compile in parallel, one
+process each.  The libraries go to ``truely_tpu_torch/_build/`` (listed in
+``.gitignore``), named by a hash of the source, the shared header and the
+flags, so a changed source rebuilds and an unchanged one is reused.
+
+Flags: ``sm_90a`` (Hopper), ``-O3``, and ``-fmad=false`` so no multiply and
+add fuse into an FMA: the kernels must be bit-equal to their plain PyTorch
+versions, which round after every operation.  No ``--use_fast_math``:
+division stays IEEE round-to-nearest.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+from typing import Dict, Iterable
+
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
+SOURCES = ("yuv", "nms", "crop_area", "crop_bilinear")
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+_lock = threading.Lock()
+_libs: Dict[str, ctypes.CDLL] = {}
+# name -> nvcc's output (the ptxas report) of builds made by this process
+build_log: Dict[str, str] = {}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
+    path = os.path.join(home, "bin", "nvcc")
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
+    return path
+
+
+def _target(name: str) -> Path:
+    h = hashlib.sha256()
+    for part in (CSRC / f"{name}.cu", CSRC / "common.cuh"):
+        h.update(part.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
+
+
+def build(names: Iterable[str] = SOURCES) -> None:
+    """Compile every named source whose library is missing, all in
+    parallel.  Raises with nvcc's output if any build fails."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    nvcc = None
+    for name in names:
+        target = _target(name)
+        if target.exists():
+            continue
+        nvcc = nvcc or _nvcc()
+        tmp = target.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True),
+                       tmp, target)
+    failed = []
+    for name, (proc, tmp, target) in procs.items():
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"--- {name} ---\n{out}")
+            continue
+        os.replace(tmp, target)  # atomic: a reader never sees half a library
+        build_log[name] = out
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``, built on first use."""
+    with _lock:
+        if name not in _libs:
+            build([name])
+            lib = ctypes.CDLL(str(_target(name)))
+            lib.tt_error_string.argtypes = [ctypes.c_int]
+            lib.tt_error_string.restype = ctypes.c_char_p
+            _libs[name] = lib
+        return _libs[name]
+
+
+P = ctypes.c_void_p  # a device pointer (tensor.data_ptr()) or a stream
+I = ctypes.c_int
+
+
+def launch(name: str, symbol: str, argtypes, *args, device) -> None:
+    """Call ``symbol`` of ``csrc/<name>.cu`` with ``args`` and the current
+    stream of ``device`` appended, and raise if the launch failed (the C
+    side returns ``cudaGetLastError()`` right after the launch)."""
+    import torch
+
+    lib = load(name)
+    fn = getattr(lib, symbol)
+    fn.argtypes = [*argtypes, P]
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(device):
+        code = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    if code != 0:
+        raise RuntimeError(f"{symbol}: CUDA error {code}: {lib.tt_error_string(code).decode()}")
+
+
+def require_cuda(what: str, *tensors) -> None:
+    """Raise unless every tensor lies on one CUDA device: a kernel takes
+    raw device pointers, so a tensor elsewhere would be read as garbage."""
+    devices = {t.device for t in tensors if t is not None}
+    if len(devices) != 1 or next(iter(devices)).type != "cuda":
+        raise ValueError(f"{what}: the kernel needs tensors on one CUDA device, got {devices}")
