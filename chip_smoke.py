@@ -6,26 +6,39 @@
 Phases, in order; any failure raises and exits non-zero:
 
 1. the card's name and power limit, as nvidia-smi reports them;
-2. the build of every CUDA kernel of the score path (one nvcc per source,
-   all started together);
-3. kernels: K1-K4 at the shapes of one production step (1080p,
+2. the build of every CUDA kernel (one nvcc per source, all started
+   together);
+3. kernels: K1-K5 at the shapes of one production step (1080p,
    frame_batch 32) on seeded random inputs, each held with ``torch.equal``
-   to its plain PyTorch version run on the same CUDA tensors, and timed with
-   CUDA events beside the plain version, a PyTorch library call where one
-   computes the same function, and its bound;
-4. end to end: ``Detector`` at the bf16 defaults with its own seeded weights
-   runs ``analyze_i420`` on seeded synthetic 1080p I420 frames, one warm-up
-   batch and then four batches of 32 sampled frames.  Every launch count is
-   set to 0 just before that run and read just after it, and every kernel
-   must have launched;
-5. a float32 cross-check: GOLDEN_CONFIG (frame_batch 16, float32, TF32 off)
-   on the card and on the CPU over the same 16 synthetic 640x360 frames.
+   to its plain PyTorch version run on the same CUDA tensors (K5 also to K3
+   at q=1), and timed with CUDA events beside the plain version, a PyTorch
+   library call where one computes the same function, and its bound.  Each
+   call form belongs to a path: the score path (bf16 defaults), the
+   propagate path (its keyframe step and its refine step) or neither (forms
+   kept for comparison);
+4. end to end, score path: ``Detector`` at the bf16 defaults with its own
+   seeded weights runs ``analyze_i420`` on seeded synthetic 1080p I420
+   frames, one warm-up batch and then four batches of 32 sampled frames.
+   Every launch count is set to 0 just before that run and read just after
+   it; K1-K4 must have launched and K5 not;
+5. end to end, propagate path: the same at ``detect_interval=4`` and then
+   ``"auto"``, on the exact crop chain with ``use_fused_crops=1`` and
+   thresholds of 0, on stable content (a few seeded base frames shifted by
+   a few pixels), one warm-up cycle and then 16 batches; K1, K2, K4 and K5
+   must have launched and K3 not, and the "auto" ladder must have climbed
+   (the seeded R-Net/O-Net box regressions are scaled down for these runs,
+   see PROP_REGRESSION_SCALE).  Each run prints how many segments the
+   propagate fallback re-ran through the full step;
+6. float32 cross-checks of card against CPU: GOLDEN_CONFIG (frame_batch 16,
+   TF32 off) over 16 synthetic 640x360 frames, and the propagate path
+   (``detect_interval=4``, ``use_fused_crops=1``) over 16 stable ones.
 
 The line before the last is one JSON object with every kernel's numbers;
 the last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device
 the script exits non-zero and prints no result.  ``--profile DIR`` also
-traces one end-to-end batch with ``torch.profiler`` and writes the kernel
-table and a Chrome trace into DIR.
+traces one score-path batch and one K=4 propagate cycle (four batches) with
+``torch.profiler`` and writes their kernel tables and Chrome traces into
+DIR.
 """
 
 from __future__ import annotations
@@ -37,7 +50,7 @@ import os
 import subprocess
 import sys
 import time
-from typing import Callable, List, NamedTuple, Optional
+from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -51,12 +64,22 @@ PEAKS = "H100 SXM peaks: 3.35 TB/s HBM, 67 TFLOP/s float32 (700 W)"
 
 STEP_B, STEP_H, STEP_W = 32, 1080, 1920
 E2E_BATCHES = 4
+PROP_BATCHES = 16  # four keyframe cycles at K=4
 FPS = 7  # sample_interval(7) == 1: every frame is a sampled frame
 # The seeded random nets are no face detectors: at the default thresholds
 # they pass nothing on synthetic content.  The float32 cross-check lowers
 # the R-Net and O-Net thresholds so that some frames carry a face and the
 # boxes, crops, embeddings and similarities are compared too.
 XCHECK_THRESHOLDS = (0.5, 0.1, 0.3)
+# The propagate phase passes every candidate (the seeded nets' scores are
+# no face scores), so that most frames carry a face and the ladder climbs.
+PROP_THRESHOLDS = (0.0, 0.0, 0.0)
+# The seeded R-Net/O-Net box regressions throw a refined box far off its
+# candidate (inverted, off the frame), so refinement would lose every seed
+# and the propagate path would only run its fallback.  Its runs scale both
+# regression heads by this factor: refined boxes stay near their candidates.
+PROP_REGRESSION_SCALE = 0.1
+SCORE, PROPAGATE = "score", "propagate"
 
 
 def log(msg: str) -> None:
@@ -118,22 +141,39 @@ def synthetic_i420(n: int, h: int, w: int, seed: int, block: int = 20) -> np.nda
     return np.ascontiguousarray(np.concatenate([y, u, v], axis=1))
 
 
+def stable_i420(n: int, h: int, w: int, seed: int, n_base: int = 4, hold: int = 64) -> np.ndarray:
+    """n packed I420 frames of stable content: each of n_base seeded base
+    frames holds for ``hold`` frames, shifted right by 0-14 px (even, so the
+    chroma planes shift with it)."""
+    base = synthetic_i420(n_base, h, w, seed)
+    out = np.empty((n, h * 3 // 2, w), np.uint8)
+    q = h // 4
+    for i in range(n):
+        src, s = base[(i // hold) % n_base], 2 * (i % 8)
+        out[i, :h] = np.roll(src[:h], s, axis=1)
+        for lo in (h, h + q):  # the U plane, then the V plane
+            plane = src[lo:lo + q].reshape(h // 2, w // 2)
+            out[i, lo:lo + q] = np.roll(plane, s // 2, axis=1).reshape(q, w)
+    return out
+
+
 # ---------------------------------------------------------------------------
 # Kernel phase
 # ---------------------------------------------------------------------------
 
 
 class Form(NamedTuple):
-    """One call form of a kernel at the shapes the main path gives it."""
+    """One call form of a kernel at the shapes a path gives it."""
 
     kernel: str
     label: str
-    main: bool                      # on the bf16 default path
+    paths: Tuple[str, ...]          # SCORE and/or PROPAGATE; () = comparison only
     run: Callable[[], torch.Tensor]
     plain: Callable[[], torch.Tensor]
     library: Optional[Callable[[], object]]
     nbytes: float
     ops: float
+    same_as: Optional[Callable[[], torch.Tensor]] = None  # another kernel, equal result
 
 
 def random_boxes(g, b, k, h, w, device, clusters=8):
@@ -167,7 +207,7 @@ def covered_pixels(x0, y0, x1, y1, h, w) -> int:
 
 
 def kernel_forms(device) -> List[Form]:
-    from truely_tpu_torch.ops import nms, resize, yuv
+    from truely_tpu_torch.ops import crop_area_fused, nms, resize, yuv
     from truely_tpu_torch.ops.boxes import pad_crop_bounds, rerec
 
     g = torch.Generator(device=device).manual_seed(1234)
@@ -179,15 +219,20 @@ def kernel_forms(device) -> List[Form]:
     packed = torch.randint(0, 256, (b, h * 3 // 2, w), generator=g, device=device,
                            dtype=torch.uint8)
     forms.append(Form(
-        "i420_to_bgr", f"({b},{h * 3 // 2},{w}) u8", True,
+        "i420_to_bgr", f"({b},{h * 3 // 2},{w}) u8", (SCORE, PROPAGATE),
         lambda: yuv.i420_to_bgr(packed), lambda: yuv.i420_to_bgr_plain(packed), None,
         nbytes=packed.numel() + b * h * w * 3, ops=b * h * w * 3 * 4))
 
-    # K2: the cascade's four NMS calls, on clustered candidates with tied
-    # scores (multiples of 1/64) and a fifth of the slots invalid.
-    for k, thr, method, grouped in ((256, 0.5, "union", True), (256, 0.7, "union", False),
-                                    (64, 0.7, "union", False), (32, 0.7, "min", False)):
-        boxes = random_boxes(g, b, k, h, w, device)
+    # K2: the cascade's four NMS calls (the score path and the propagate
+    # path's keyframe step), and the refine step's two over the 4
+    # candidates around one face, on clustered candidates with tied scores
+    # (multiples of 1/64) and a fifth of the slots invalid.
+    both, prop = (SCORE, PROPAGATE), (PROPAGATE,)
+    for k, thr, method, grouped, paths in (
+            (256, 0.5, "union", True, both), (256, 0.7, "union", False, both),
+            (64, 0.7, "union", False, both), (32, 0.7, "min", False, both),
+            (4, 0.7, "union", False, prop), (4, 0.7, "min", False, prop)):
+        boxes = random_boxes(g, b, k, h, w, device, clusters=1 if k == 4 else 8)
         scores = torch.floor(torch.empty((b, k), device=device).uniform_(
             0.6, 1.0, generator=g) * 64) / 64
         valid = torch.rand((b, k), generator=g, device=device) > 0.2
@@ -203,7 +248,7 @@ def kernel_forms(device) -> List[Form]:
         # 14 float operations per IoU test of a valid pair (2 min, 2 max,
         # 4 add/sub, 2 clamps, 1 mul, 2 for the denominator, 1 div).
         forms.append(Form(
-            "nms_masked_batch", f"K={k} {method} iou={thr}{' grouped' if grouped else ''}", True,
+            "nms_masked_batch", f"K={k} {method} iou={thr}{' grouped' if grouped else ''}", paths,
             lambda bx=boxes, s=scores, v=valid, kw=kw: nms.nms_masked_batch(bx, s, v, **kw),
             lambda bx=boxes, s=scores, v=valid, kw=kw: nms.nms_masked_batch_plain(bx, s, v, **kw),
             None, nbytes=b * k * (16 + 4 + 1 + 1 + (4 if grouped else 0)),
@@ -212,22 +257,49 @@ def kernel_forms(device) -> List[Form]:
     frames = torch.randint(0, 256, (b, h, w, 3), generator=g, device=device, dtype=torch.uint8)
 
     # K3: stage crops, R-Net (K=64, 24x24) and O-Net (K=32, 48x48), at the
-    # bf16 default's q=4 and at GOLDEN_CONFIG's exact q=1.
-    for quant in (4, 1):
-        for k, o in ((64, 24), (32, 48)):
-            bounds = pad_crop_bounds(rerec(random_boxes(g, b, k, h, w, device)), w, h)
-            x0, y0, x1, y1 = resize.snapped_bounds(bounds, quant)
-            sy, ey = resize.bin_edges(y0, y1 - y0, o)
-            sx, ex = resize.bin_edges(x0, x1 - x0, o)
-            summed = (ey - sy).sum(-1) * (ex - sx).sum(-1) * quant * quant  # pixels added
-            cover = covered_pixels(x0 * quant, y0 * quant, x1 * quant, y1 * quant, h, w)
-            forms.append(Form(
-                "crop_resize_area", f"K={k} O={o} q={quant}", quant == 4,
-                lambda f=frames, bd=bounds, o=o, q=quant: resize.crop_resize_area(f, bd, o, quant=q),
-                lambda f=frames, bd=bounds, o=o, q=quant: resize.crop_resize_area_plain(
-                    f, bd, o, quant=q),
-                None, nbytes=cover * 3 + bounds.numel() * 4 + b * k * o * o * 3 * 4,
-                ops=int(summed.sum()) * 3 + b * k * o * o * 3))
+    # bf16 default's q=4 (the score path) and at GOLDEN_CONFIG's exact q=1;
+    # the refine step's K=4 forms at q=4 (the propagate path at the default
+    # crops; the propagate path driven here takes K5).  K5: the same exact
+    # crops from planar frames, the keyframe step's (K=64, K=32) and the
+    # refine step's (K=4) forms, each held to K3 at q=1 too.
+    planar = crop_area_fused.prep_frames_for_fused_crops(frames)
+
+    def crop_bytes(bounds, o, quant):
+        x0, y0, x1, y1 = resize.snapped_bounds(bounds, quant)
+        cover = covered_pixels(x0 * quant, y0 * quant, x1 * quant, y1 * quant, h, w)
+        return cover * 3 + bounds.numel() * 4 + b * bounds.shape[1] * o * o * 3 * 4
+
+    def crop_ops(bounds, o, quant):
+        x0, y0, x1, y1 = resize.snapped_bounds(bounds, quant)
+        sy, ey = resize.bin_edges(y0, y1 - y0, o)
+        sx, ex = resize.bin_edges(x0, x1 - x0, o)
+        summed = (ey - sy).sum(-1) * (ex - sx).sum(-1) * quant * quant  # pixels added
+        return int(summed.sum()) * 3 + b * bounds.shape[1] * o * o * 3
+
+    def crop_bounds(k):
+        boxes = random_boxes(g, b, k, h, w, device, clusters=1 if k == 4 else 8)
+        return pad_crop_bounds(rerec(boxes), w, h)
+
+    for quant, k, o, paths in ((4, 64, 24, (SCORE,)), (4, 32, 48, (SCORE,)),
+                               (4, 4, 24, ()), (4, 4, 48, ()),
+                               (1, 64, 24, ()), (1, 32, 48, ())):
+        bounds = crop_bounds(k)
+        forms.append(Form(
+            "crop_resize_area", f"K={k} O={o} q={quant}", paths,
+            lambda bd=bounds, o=o, q=quant: resize.crop_resize_area(frames, bd, o, quant=q),
+            lambda bd=bounds, o=o, q=quant: resize.crop_resize_area_plain(frames, bd, o, quant=q),
+            None, nbytes=crop_bytes(bounds, o, quant), ops=crop_ops(bounds, o, quant)))
+    for k, o in ((64, 24), (32, 48), (4, 24), (4, 48)):
+        bounds = crop_bounds(k)
+        plain = lambda bd=bounds, o=o: crop_area_fused.crop_resize_area_fused_plain(
+            planar, bd, o, src_hw=(h, w))
+        k3 = lambda bd=bounds, o=o: resize.crop_resize_area(frames, bd, o, quant=1)
+        forms.append(Form(
+            "crop_resize_area_fused", f"K={k} O={o}", (PROPAGATE,),
+            lambda bd=bounds, o=o: crop_area_fused.crop_resize_area_fused(
+                planar, bd, o, src_hw=(h, w)),
+            plain, None, nbytes=crop_bytes(bounds, o, 1), ops=crop_ops(bounds, o, 1),
+            same_as=k3))
 
     # K4: the 80x80 face crop, one box per frame, clamped as the embed tail
     # clamps it; three lerps of three operations per output value.  Library
@@ -255,7 +327,7 @@ def kernel_forms(device) -> List[Form]:
                         ((ay + 0.5) * 2 / h - 1)[:, :, None].expand(b, o, o)], -1)
     frames_f = frames.permute(0, 3, 1, 2).float()
     forms.append(Form(
-        "crop_resize_bilinear", f"K=1 O={o}", True,
+        "crop_resize_bilinear", f"K=1 O={o}", (SCORE, PROPAGATE),
         lambda: resize.crop_resize_bilinear(frames, bounds, o),
         lambda: resize.crop_resize_bilinear_plain(frames, bounds, o),
         lambda: torch.nn.functional.grid_sample(frames_f, grid, mode="bilinear",
@@ -271,28 +343,37 @@ SOURCES = {
                          "truely_tpu/ops/crop_fused2.py:166"),
     "crop_resize_bilinear": ("truely_tpu_torch/csrc/crop_bilinear.cu",
                              "truely_tpu/ops/crop_pallas.py:188"),
+    "crop_resize_area_fused": ("truely_tpu_torch/csrc/crop_area_fused.cu",
+                               "truely_tpu/ops/crop_area_fused.py:155"),
 }
+# The path whose run gives a kernel's "launches" and whose forms give its
+# per-step times in the kernels line.
+MAIN_PATH = {name: SCORE for name in SOURCES}
+MAIN_PATH["crop_resize_area_fused"] = PROPAGATE
 
 
 def kernel_phase(device) -> dict:
-    """Every form checked and timed; returns kernel name -> summary, whose
-    times are per production step (the sum over the main-path forms)."""
+    """Every form checked and timed; returns kernel name -> summary, with
+    per-path times (the sum over the forms of each path, one step's calls:
+    for the propagate path one keyframe step's and one refine step's)."""
     forms = kernel_forms(device)
     rows, failures = [], []
     for f in forms:
         got, want = f.run(), f.plain()
+        other = f.same_as() if f.same_as else want
         torch.cuda.synchronize()
-        equal = torch.equal(got, want)
+        equal = torch.equal(got, want) and torch.equal(got, other)
         err = float((got.double() - want.double()).abs().max()) if got.shape == want.shape else math.inf
         ms = cuda_ms(f.run)
         plain_ms = cuda_ms(f.plain)
         lib_ms = cuda_ms(f.library) if f.library else None
         b_ms, by = bound_ms(f.nbytes, f.ops)
-        rows.append(dict(kernel=f.kernel, form=f.label, main=f.main, equal=equal,
+        rows.append(dict(kernel=f.kernel, form=f.label, paths=list(f.paths), equal=equal,
                          max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                          bound_ms=b_ms, bound_by=by, bytes=f.nbytes, ops=f.ops))
-        log(f"kernel {f.kernel} [{f.label}]{'' if f.main else ' (GOLDEN_CONFIG form)'}: "
-            f"equal={equal} max_abs_err={err} ms={ms:.4f} plain_ms={plain_ms:.4f} "
+        log(f"kernel {f.kernel} [{f.label}] paths={'+'.join(f.paths) or 'none'}: "
+            f"equal={equal}{' (to plain and to K3 q=1)' if f.same_as else ''} "
+            f"max_abs_err={err} ms={ms:.4f} plain_ms={plain_ms:.4f} "
             f"library_ms={'null' if lib_ms is None else f'{lib_ms:.4f}'} "
             f"bound_ms={b_ms:.5f} ({by}: {f.nbytes:.3e} B, {f.ops:.3e} ops)")
         if not equal:
@@ -302,18 +383,23 @@ def kernel_phase(device) -> dict:
 
     summary = {}
     for name in SOURCES:
-        main = [r for r in rows if r["kernel"] == name and r["main"]]
-        libs = [r["library_ms"] for r in main]
-        b_ms = sum(r["bound_ms"] for r in main)
+        mine = [r for r in rows if r["kernel"] == name]
+        per_path = {}
+        for path in (SCORE, PROPAGATE):
+            on = [r for r in mine if path in r["paths"]]
+            if not on:
+                continue
+            libs = [r["library_ms"] for r in on]
+            per_path[path] = dict(
+                ms=sum(r["ms"] for r in on), plain_ms=sum(r["plain_ms"] for r in on),
+                bound_ms=sum(r["bound_ms"] for r in on),
+                bound_by=max(on, key=lambda r: r["bound_ms"])["bound_by"],
+                library_ms=None if None in libs else sum(libs))
         summary[name] = dict(
-            max_abs_err=max(r["max_abs_err"] for r in rows if r["kernel"] == name),
-            ms=sum(r["ms"] for r in main), plain_ms=sum(r["plain_ms"] for r in main),
-            bound_ms=b_ms,
-            bound_by=max(main, key=lambda r: r["bound_ms"])["bound_by"],
-            library_ms=None if None in libs else sum(libs),
-            forms=[{k: r[k] for k in ("form", "main", "ms", "plain_ms", "library_ms",
-                                      "bound_ms", "bound_by")} for r in rows
-                   if r["kernel"] == name])
+            max_abs_err=max(r["max_abs_err"] for r in mine), paths=per_path,
+            forms=[{k: r[k] for k in ("form", "paths", "ms", "plain_ms", "library_ms",
+                                      "bound_ms", "bound_by")} for r in mine])
+        log(f"kernel {name} per step: " + json.dumps(per_path))
     return summary
 
 
@@ -323,11 +409,22 @@ def kernel_phase(device) -> dict:
 
 
 def launch_counters():
-    from truely_tpu_torch.ops import nms, resize, yuv
+    from truely_tpu_torch.ops import crop_area_fused, nms, resize, yuv
 
     return {"i420_to_bgr": yuv.i420_to_bgr, "nms_masked_batch": nms.nms_masked_batch,
             "crop_resize_area": resize.crop_resize_area,
-            "crop_resize_bilinear": resize.crop_resize_bilinear}
+            "crop_resize_bilinear": resize.crop_resize_bilinear,
+            "crop_resize_area_fused": crop_area_fused.crop_resize_area_fused}
+
+
+def sync_ms(fn) -> Tuple[object, float]:
+    """(result, host milliseconds) of ``fn`` with the device synchronised
+    before and after."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
 
 
 def stage_times(det, packed: torch.Tensor) -> dict:
@@ -342,11 +439,7 @@ def stage_times(det, packed: torch.Tensor) -> dict:
     times = {}
 
     def timed(name, fn):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        times[name] = (time.perf_counter() - t0) * 1e3
+        out, times[name] = sync_ms(fn)
         return out
 
     with torch.inference_mode():
@@ -355,8 +448,8 @@ def stage_times(det, packed: torch.Tensor) -> dict:
                                      lambda: mtcnn._stage1(det.nets.mtcnn, frames, cfg.mtcnn, dtype))
         k2 = min(cfg.mtcnn.rnet_capacity, boxes.shape[1])
         dets = timed("stages 2-3 (crops, R-Net, O-Net, NMS x2)", lambda: mtcnn._stages23(
-            det.nets.mtcnn, frames, boxes, scores, valid, cfg.mtcnn, k2=k2,
-            k3=min(cfg.mtcnn.onet_capacity, k2), dtype=dtype))
+            det.nets.mtcnn, mtcnn.prep_crop_frames(frames, cfg.mtcnn, dtype), boxes, scores,
+            valid, cfg.mtcnn, k2=k2, k3=min(cfg.mtcnn.onet_capacity, k2), dtype=dtype))
         box, _score, has_face = mtcnn.select_primary_face(dets)
         out = timed("embed (face crop, FaceNet, landmarks)", lambda: embed_tail(
             det.nets, frames, box, has_face, cfg, dtype))
@@ -365,7 +458,23 @@ def stage_times(det, packed: torch.Tensor) -> dict:
     return times
 
 
-def profile_batch(det, packed: np.ndarray, out_dir: str) -> None:
+def propagate_stage_times(det, packed: torch.Tensor) -> dict:
+    """Milliseconds of the propagate path's two steps on one batch,
+    synchronised around each: the cascade-only seed step of a keyframe
+    batch, and the refine step (I420, seeded stages 2-3, embed tail)."""
+    from truely_tpu_torch.pipeline import detector
+
+    k = 4
+    (seed_box, seed_hf), t_seed = sync_ms(lambda: det._run(detector.frame_step_detect_yuv, packed))
+    _, t_refine = sync_ms(lambda: det._run(
+        detector.frame_step_propagate_yuv, packed, seed_box[::k], seed_hf[::k], k=k))
+    return {"seed step (I420, cascade)": t_seed,
+            "refine step (I420, stages 2-3 on 4 candidates, embed)": t_refine}
+
+
+def profile_run(det, packed: np.ndarray, out_dir: str, name: str) -> None:
+    """torch.profiler over ``analyze_i420(packed)``: the kernel table and a
+    Chrome trace into ``out_dir`` as ``<name>.txt`` and ``<name>.json``."""
     from torch.profiler import ProfilerActivity, profile
 
     os.makedirs(out_dir, exist_ok=True)
@@ -375,21 +484,65 @@ def profile_batch(det, packed: np.ndarray, out_dir: str) -> None:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     table = prof.key_averages().table(sort_by="cuda_time_total", row_limit=40)
-    with open(os.path.join(out_dir, "profile.txt"), "w") as f:
+    with open(os.path.join(out_dir, f"{name}.txt"), "w") as f:
         f.write(table)
-    prof.export_chrome_trace(os.path.join(out_dir, "trace.json"))
+    prof.export_chrome_trace(os.path.join(out_dir, f"{name}.json"))
     # Time of every device kernel (the attribute's name changed across
     # PyTorch versions).
     device_us = sum(getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
                     for e in prof.key_averages()
                     if str(getattr(e, "device_type", "")).endswith("CUDA"))
-    log(f"profile: one batch {wall * 1e3:.2f} ms wall, {device_us / 1e3:.2f} ms of device "
-        f"kernels (idle share {1 - device_us / 1e6 / wall:.3f}); table in {out_dir}/profile.txt")
+    log(f"profile {name}: {packed.shape[0]} frames {wall * 1e3:.2f} ms wall, "
+        f"{device_us / 1e3:.2f} ms of device kernels (idle share {1 - device_us / 1e6 / wall:.3f}); "
+        f"table in {out_dir}/{name}.txt")
     log("\n".join(table.splitlines()[:30]))
 
 
-def e2e_phase(profile_dir: Optional[str]) -> dict:
-    """Returns each kernel's launch count over the timed batches."""
+def steady_regression(det):
+    """Scale the R-Net and O-Net box-regression heads of ``det`` by
+    PROP_REGRESSION_SCALE (see there)."""
+    with torch.no_grad():
+        for layer in (det.nets.mtcnn.rnet.dense5_2, det.nets.mtcnn.onet.dense6_2):
+            layer.weight.mul_(PROP_REGRESSION_SCALE)
+            layer.bias.mul_(PROP_REGRESSION_SCALE)
+    return det
+
+
+def drive(det, packed: np.ndarray, n_warm: int, label: str) -> Tuple[object, Dict[str, int]]:
+    """``analyze_i420`` on the first ``n_warm`` frames (warm-up), then, with
+    every launch count set to 0 just before, on the rest; checks the
+    records and returns (result, launches of the timed run)."""
+    det.analyze_i420(packed[:n_warm], fps=FPS)
+    torch.cuda.synchronize()
+    fallback0 = det.fallback_segments
+    counters = launch_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    res = det.analyze_i420(packed[n_warm:], fps=FPS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in counters.items()}
+
+    n = res.total_processed
+    b = det.config.frame_batch
+    require(n == packed.shape[0] - n_warm == len(res.records), f"{n} sampled, {len(res.records)} records")
+    sims = np.array([r.similarity for r in res.records])
+    require(bool(np.isfinite(sims).all() and (np.abs(sims) <= 1.0 + 1e-5).all()),
+            f"similarities out of range: {sims}")
+    require(0 <= res.fake_score <= 100, f"fake_score {res.fake_score}")
+    faces = sum(r.has_face for r in res.records)
+    log(f"e2e {label}: {n} sampled frames in {wall:.4f} s = {n / wall:.2f} sampled frames/s "
+        f"({n // b} batches of {b}); frames with a face: {faces}; segments re-run by the "
+        f"propagate fallback: {det.fallback_segments - fallback0}; "
+        f"fake_score {res.fake_score}; host timings {json.dumps(res.timings)}")
+    log(json.dumps({"path": label, "launches": launches}))
+    return res, launches
+
+
+def e2e_phase(profile_dir: Optional[str]) -> Dict[str, int]:
+    """The score path; returns each kernel's launch count over its timed
+    batches."""
     from truely_tpu_torch.config import DetectorConfig
     from truely_tpu_torch.pipeline.detector import Detector
 
@@ -400,31 +553,10 @@ def e2e_phase(profile_dir: Optional[str]) -> dict:
     packed = synthetic_i420(b * (1 + E2E_BATCHES), STEP_H, STEP_W, seed=7)
     log(f"e2e: Detector({cfg.compute_dtype}, frame_batch {b}) and {packed.shape[0]} frames "
         f"of {STEP_W}x{STEP_H} I420 ready in {time.perf_counter() - t0:.1f} s")
-
-    det.analyze_i420(packed[:b], fps=FPS)  # warm-up batch
-    torch.cuda.synchronize()
-    counters = launch_counters()
-    for fn in counters.values():
-        fn.launches = 0
-    t0 = time.perf_counter()
-    res = det.analyze_i420(packed[b:], fps=FPS)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = {name: fn.launches for name, fn in counters.items()}
-
-    n = res.total_processed
-    require(n == b * E2E_BATCHES == len(res.records), f"{n} sampled, {len(res.records)} records")
-    sims = np.array([r.similarity for r in res.records])
-    require(bool(np.isfinite(sims).all() and (np.abs(sims) <= 1.0 + 1e-5).all()),
-            f"similarities out of range: {sims}")
-    require(0 <= res.fake_score <= 100, f"fake_score {res.fake_score}")
-    faces = sum(r.has_face for r in res.records)
-    log(f"e2e: {n} sampled frames in {wall:.4f} s = {n / wall:.2f} sampled frames/s "
-        f"({E2E_BATCHES} batches of {b}); frames with a face: {faces}; "
-        f"fake_score {res.fake_score}; host timings {json.dumps(res.timings)}")
-    log(json.dumps({"launches": launches}))
-    missing = [k for k, v in launches.items() if v <= 0]
-    require(not missing, f"kernels not launched on the main path: {missing}")
+    _, launches = drive(det, packed, b, SCORE)
+    missing = [k for k, v in launches.items() if v <= 0 and MAIN_PATH[k] == SCORE]
+    require(not missing, f"kernels not launched on the score path: {missing}")
+    require(launches["crop_resize_area_fused"] == 0, "K5 launched on the score path")
 
     step = torch.from_numpy(packed[b:2 * b]).to(det.device)
     stage_times(det, step)  # warm
@@ -432,43 +564,88 @@ def e2e_phase(profile_dir: Optional[str]) -> dict:
     log("e2e stages (ms, one batch of 32, synchronised per stage): "
         + json.dumps({k: round(v, 3) for k, v in times.items()}))
     if profile_dir:
-        profile_batch(det, packed[b:2 * b], profile_dir)
+        profile_run(det, packed[b:2 * b], profile_dir, "score_batch")
     return launches
 
 
+def propagate_phase(profile_dir: Optional[str]) -> Dict[str, int]:
+    """The propagate path at K=4 and "auto"; returns each kernel's launch
+    count over the K=4 run's timed batches."""
+    from truely_tpu_torch.config import DetectorConfig, MTCNNConfig
+    from truely_tpu_torch.pipeline.detector import Detector
+
+    mt = MTCNNConfig(stage_crop_quant=1, use_fused_crops=1, thresholds=PROP_THRESHOLDS)
+    b = DetectorConfig().frame_batch
+    t0 = time.perf_counter()
+    packed = stable_i420(b * (4 + PROP_BATCHES), STEP_H, STEP_W, seed=21)
+    log(f"propagate: {packed.shape[0]} stable frames of {STEP_W}x{STEP_H} I420 ready in "
+        f"{time.perf_counter() - t0:.1f} s")
+    fixed = None
+    for interval in (4, "auto"):
+        det = steady_regression(Detector(DetectorConfig(detect_interval=interval, mtcnn=mt)))
+        _, launches = drive(det, packed, 4 * b, f"propagate K={interval}")
+        silent = [k for k, v in launches.items() if v <= 0 and k != "crop_resize_area"]
+        require(not silent, f"kernels not launched on the propagate path: {silent}")
+        require(launches["crop_resize_area"] == 0, "K3 launched where K5 should run")
+        if interval == "auto":
+            log(f"propagate auto telemetry (warm-up and timed runs): rung "
+                f"{det.auto_interval_current}, keyframe segments {det.auto_keyframe_segments}, "
+                f"refine segments {det.auto_refine_segments}")
+            require(det.auto_refine_segments > 0 and det.auto_interval_current > 1,
+                    "the auto ladder did not climb")
+        else:
+            fixed = launches
+            step = torch.from_numpy(packed[:b]).to(det.device)
+            propagate_stage_times(det, step)  # warm
+            log("propagate stages (ms, one batch of 32, synchronised per step): " + json.dumps(
+                {k: round(v, 3) for k, v in propagate_stage_times(det, step).items()}))
+            if profile_dir:
+                profile_run(det, packed[:4 * b], profile_dir, "propagate_cycle")
+    return fixed
+
+
 # ---------------------------------------------------------------------------
-# float32 cross-check
+# float32 cross-checks
 # ---------------------------------------------------------------------------
+
+
+def compare_runs(label: str, gpu, cpu) -> None:
+    hf_g = [r.has_face for r in gpu.records]
+    hf_c = [r.has_face for r in cpu.records]
+    require(hf_g == hf_c, f"{label}: has_face differs: card {hf_g}, CPU {hf_c}")
+    require(sum(hf_c) >= 2, f"{label}: cross-check needs face frames, got {sum(hf_c)}")
+    box_err = float(np.abs(np.array([r.box for r in gpu.records])
+                           - np.array([r.box for r in cpu.records])).max())
+    sim_err = float(np.abs(np.array([r.similarity for r in gpu.records])
+                           - np.array([r.similarity for r in cpu.records])).max())
+    log(f"xcheck float32 {label} (thresholds {XCHECK_THRESHOLDS}, TF32 off): "
+        f"{sum(hf_c)}/{len(hf_c)} frames with a face on both; max box err {box_err} px, "
+        f"max sim err {sim_err:.3e}; scores {gpu.fake_score} / {cpu.fake_score}")
+    require(box_err <= 1.0 and sim_err <= 2e-4, f"{label}: box err {box_err} px, sim err {sim_err}")
 
 
 def xcheck_phase() -> None:
     from truely_tpu_torch.config import DetectorConfig, MTCNNConfig
     from truely_tpu_torch.pipeline.detector import Detector
 
-    cfg = DetectorConfig(frame_batch=16, compute_dtype="float32",
-                         mtcnn=MTCNNConfig(thresholds=XCHECK_THRESHOLDS))
-    packed = synthetic_i420(16, 360, 640, seed=12)
-    gpu = Detector(cfg).analyze_i420(packed, fps=FPS)
     torch.set_num_threads(min(8, os.cpu_count() or 1))
-    cpu = Detector(cfg, device="cpu").analyze_i420(packed, fps=FPS)
-    hf_g = [r.has_face for r in gpu.records]
-    hf_c = [r.has_face for r in cpu.records]
-    require(hf_g == hf_c, f"has_face differs: card {hf_g}, CPU {hf_c}")
-    require(sum(hf_c) >= 2, f"cross-check needs face frames, got {sum(hf_c)}")
-    box_err = float(np.abs(np.array([r.box for r in gpu.records])
-                           - np.array([r.box for r in cpu.records])).max())
-    sim_err = float(np.abs(np.array([r.similarity for r in gpu.records])
-                           - np.array([r.similarity for r in cpu.records])).max())
-    log(f"xcheck float32 (GOLDEN_CONFIG, thresholds {XCHECK_THRESHOLDS}, TF32 off): "
-        f"{sum(hf_c)}/16 frames with a face on both; max box err {box_err} px, "
-        f"max sim err {sim_err:.3e}; scores {gpu.fake_score} / {cpu.fake_score}")
-    require(box_err <= 1.0 and sim_err <= 2e-4, f"box err {box_err} px, sim err {sim_err}")
+    mt = MTCNNConfig(thresholds=XCHECK_THRESHOLDS)
+    golden = DetectorConfig(frame_batch=16, compute_dtype="float32", mtcnn=mt)
+    propagate = DetectorConfig(frame_batch=16, compute_dtype="float32", detect_interval=4,
+                               mtcnn=MTCNNConfig(thresholds=XCHECK_THRESHOLDS, use_fused_crops=1))
+    for label, cfg, packed, prep in (
+            ("GOLDEN_CONFIG", golden, synthetic_i420(16, 360, 640, seed=12), lambda d: d),
+            ("propagate K=4 use_fused_crops=1", propagate, stable_i420(16, 360, 640, seed=13),
+             steady_regression)):
+        gpu = prep(Detector(cfg)).analyze_i420(packed, fps=FPS)
+        cpu = prep(Detector(cfg, device="cpu")).analyze_i420(packed, fps=FPS)
+        compare_runs(label, gpu, cpu)
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", metavar="DIR", default=None,
-                    help="also trace one end-to-end batch into DIR")
+                    help="also trace one score-path batch and one K=4 propagate cycle into DIR")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -488,17 +665,20 @@ def main(argv=None) -> int:
         log(f"build {src}: {'; '.join(regs)}")
 
     summary = kernel_phase("cuda")
-    launches = e2e_phase(args.profile)
+    launches = {SCORE: e2e_phase(args.profile), PROPAGATE: propagate_phase(args.profile)}
     xcheck_phase()
 
     kernels = []
     for kname, (source, replaces) in SOURCES.items():
-        s = summary[kname]
+        s, path = summary[kname], MAIN_PATH[kname]
+        main_path = s["paths"][path]
         kernels.append(dict(
-            name=kname, route="cuda", source=source, replaces=replaces,
-            launches=launches[kname], max_abs_err=s["max_abs_err"], ms=s["ms"],
-            plain_ms=s["plain_ms"], bound_ms=s["bound_ms"], bound_by=s["bound_by"],
-            library_ms=s["library_ms"], forms=s["forms"]))
+            name=kname, route="cuda", source=source, replaces=replaces, path=path,
+            launches=launches[path][kname], max_abs_err=s["max_abs_err"], ms=main_path["ms"],
+            plain_ms=main_path["plain_ms"], bound_ms=main_path["bound_ms"],
+            bound_by=main_path["bound_by"], library_ms=main_path["library_ms"],
+            launches_by_path={p: launches[p][kname] for p in launches},
+            per_path=s["paths"], forms=s["forms"]))
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}), flush=True)

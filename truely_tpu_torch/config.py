@@ -1,11 +1,15 @@
-"""Configuration of the score path, copied from ``truely_tpu/config.py``.
+"""Configuration of the detector, copied from ``truely_tpu/config.py``.
 
 Only the fields this package reads are kept, with the same names and
-defaults.  The TPU layout switches (folded P-Net, Pallas NMS/crops/YUV) are
-left out: on the card the hand-written kernels always run.  The semantic
-switches that change results stay: ``pyramid_cascade``,
-``stage_crop_quant``, ``compute_dtype``, the thresholds, the capacities and
-the NMS round cap.
+defaults.  The TPU layout switches (folded P-Net, Pallas NMS/face crop/YUV)
+are left out: on the card the hand-written kernels always run.  The
+semantic switches that change results stay: ``pyramid_cascade``,
+``stage_crop_quant``, ``compute_dtype``, the thresholds, the capacities, the
+NMS round cap and track propagation (``detect_interval`` and its options).
+``use_fused_crops`` stays as the choice between the two stage-crop kernels:
+1 selects kernel K5 (``ops/crop_area_fused.py``) whenever the stage crops
+are exact (q == 1); 0 and 2 keep kernel K3, which already serves what the
+JAX package's ``crop_fused2.py`` (version 2) serves.
 """
 
 from __future__ import annotations
@@ -41,6 +45,9 @@ class MTCNNConfig:
     onet_capacity: int = 32
     # Select the largest-area face (facenet_pytorch select_largest=True).
     select_largest: bool = True
+    # Exact (q == 1) stage crops through kernel K5 (1) or kernel K3 (0, 2).
+    # Both are bit-equal; q > 1 always takes K3.
+    use_fused_crops: int = 0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -64,6 +71,22 @@ class DetectorConfig:
     compute_dtype: str = "bfloat16"
     # Long-video weighting kicks in above this many seconds.
     long_video_seconds: int = 30
+    # Track-propagated detection: the full cascade runs on every K-th
+    # sampled frame only (a keyframe); the frames between refine the
+    # keyframe's box through R-Net/O-Net (pipeline/mtcnn.refine_faces).
+    # 1 = off (full detection on every sampled frame).  "auto" ladders K
+    # 1 -> 2 -> 4 -> ... -> auto_interval_max while refinement keeps its
+    # seeds and drops back to 1 when a cycle loses most of them.
+    # frame_batch must be divisible by K (by auto_interval_max for "auto").
+    detect_interval: "int | str" = 1
+    # "auto": the top rung, a power of two.
+    auto_interval_max: int = 8
+    # "auto": escalate after a cycle that lost at most this fraction of its
+    # seeded frames.
+    auto_escalate_lost: float = 0.1
+    # With K > 1: re-run full detection on a segment whose refinement lost
+    # more than half of its seeded frames (one host sync per segment).
+    propagate_fallback: bool = True
 
     def sample_interval(self, fps: int) -> int:
         return max(1, int(fps / self.sample_hz))

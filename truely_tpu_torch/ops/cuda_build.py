@@ -25,7 +25,7 @@ from typing import Dict, Iterable
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
-SOURCES = ("yuv", "nms", "crop_area", "crop_bilinear")
+SOURCES = ("yuv", "nms", "crop_area", "crop_bilinear", "crop_area_fused")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

@@ -1,6 +1,6 @@
-"""The score path of the video detector (counterpart of
-``truely_tpu/pipeline/detector.py``): cascade -> face crop -> embedding ->
-temporal scan -> score, over batches of sampled frames.
+"""The video detector (counterpart of ``truely_tpu/pipeline/detector.py``):
+cascade -> face crop -> embedding -> temporal scan -> score, over batches of
+sampled frames.
 
 Two entry points: ``analyze_frames`` takes decoded BGR frames, and
 ``analyze_i420`` takes packed I420 frames held in memory and converts them
@@ -8,11 +8,17 @@ on the device with kernel K1 (the ingest loop of the JAX
 ``analyze_video``, with the file decoder replaced by memory).  Both sample
 every ``sample_interval(fps)``-th frame, pad each batch to
 ``frame_batch``, and return the same ``VideoAnalysis`` records.
+
+With ``detect_interval`` K > 1 (or "auto") detection is track-propagated:
+the full cascade runs only on every K-th sampled frame, whose rows of K
+uploaded batches are gathered on the device into one full-width seed batch,
+and the frames between refine the keyframe's box (``refine_faces``).
 """
 
 from __future__ import annotations
 
 import contextlib
+import itertools
 import time
 from dataclasses import dataclass, field
 from typing import Dict, List, Mapping, NamedTuple, Optional, Tuple
@@ -29,7 +35,9 @@ from truely_tpu_torch.ops.temporal import (
     weighted_score,
 )
 from truely_tpu_torch.ops.yuv import i420_to_bgr
-from truely_tpu_torch.pipeline.mtcnn import MTCNNNets, detect_faces, select_primary_face
+from truely_tpu_torch.pipeline.mtcnn import (
+    MTCNNNets, detect_faces, refine_faces, select_primary_face,
+)
 
 
 class DetectorNets(NamedTuple):
@@ -78,19 +86,24 @@ class VideoAnalysis:
         return [r.frame_index for r in self.records if r.flagged]
 
 
-def embed_tail(nets: DetectorNets, frames: torch.Tensor, box: torch.Tensor,
-               has_face: torch.Tensor, cfg: DetectorConfig, dtype) -> FrameOutputs:
-    """Reference crop semantics after a box is known (trunc to int, clamp to
-    the frame, non-degenerate), the 80x80 bilinear crop (kernel K4),
-    normalization, FaceNet embedding and the landmark head."""
-    h, w = frames.shape[1], frames.shape[2]
+def clamp_box(box: torch.Tensor, h: int, w: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Reference crop semantics of a (B, 4) box: trunc to int, clamp to the
+    frame.  Returns the (B, 4) int32 bounds and whether each is
+    non-degenerate (the clamp gate)."""
     bi = box.to(torch.int32)
     x0 = bi[:, 0].clamp_min(0)
     y0 = bi[:, 1].clamp_min(0)
     x1 = bi[:, 2].clamp_max(w)
     y1 = bi[:, 3].clamp_max(h)
-    has_face = has_face & (x1 > x0) & (y1 > y0)
-    bounds = torch.stack([x0, y0, x1, y1], dim=-1)
+    return torch.stack([x0, y0, x1, y1], dim=-1), (x1 > x0) & (y1 > y0)
+
+
+def embed_tail(nets: DetectorNets, frames: torch.Tensor, box: torch.Tensor,
+               has_face: torch.Tensor, cfg: DetectorConfig, dtype) -> FrameOutputs:
+    """The clamped box (``clamp_box``), the 80x80 bilinear crop (kernel K4),
+    normalization, FaceNet embedding and the landmark head."""
+    bounds, ok = clamp_box(box, frames.shape[1], frames.shape[2])
+    has_face = has_face & ok
     crops = crop_resize_bilinear(frames, bounds[:, None, :], cfg.crop_size)[:, 0]
     if cfg.reference_compat:
         crops = crops * (1.0 / 255.0)   # torchvision to_tensor, no standardization
@@ -116,6 +129,63 @@ def frame_step_yuv(nets: DetectorNets, packed: torch.Tensor, cfg: DetectorConfig
     device by kernel K1 (bit-identical to cv2's BGR decode)."""
     frames = i420_to_bgr(packed, rgb=not cfg.reference_compat)
     return frame_step(nets, frames, cfg, dtype)
+
+
+def frame_step_detect(nets: DetectorNets, frames: torch.Tensor, cfg: DetectorConfig,
+                      dtype) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Cascade-only seed step of the keyframe batch: (box, has_face) equal to
+    the full step's, embed tail's clamp gate included, without the
+    embedding (each keyframe row's embedding comes from its segment's
+    propagate step)."""
+    det = detect_faces(nets.mtcnn, frames, cfg.mtcnn, dtype=dtype)
+    box, _score, has_face = select_primary_face(det, largest=cfg.mtcnn.select_largest)
+    _, ok = clamp_box(box, frames.shape[1], frames.shape[2])
+    return box, has_face & ok
+
+
+def frame_step_detect_yuv(nets: DetectorNets, packed: torch.Tensor, cfg: DetectorConfig,
+                          dtype) -> Tuple[torch.Tensor, torch.Tensor]:
+    frames = i420_to_bgr(packed, rgb=not cfg.reference_compat)
+    return frame_step_detect(nets, frames, cfg, dtype)
+
+
+def frame_step_propagate(nets: DetectorNets, frames: torch.Tensor, seed_boxes: torch.Tensor,
+                         seed_valid: torch.Tensor, cfg: DetectorConfig, dtype,
+                         k: Optional[int] = None) -> FrameOutputs:
+    """Track-propagated frame step: ``frames`` is a chronological batch whose
+    every K-th row is a keyframe, ``seed_boxes``/``seed_valid`` the (B/K,)
+    keyframe detections.  Keyframe rows pass their seed through (bit-equal
+    to full detection); the rows between refine it (``refine_faces``).
+    ``k`` overrides the config's interval (the "auto" ladder's rung)."""
+    k = k if k is not None else cfg.detect_interval
+    b = frames.shape[0]
+    sb = seed_boxes.repeat_interleave(k, dim=0)    # (B, 4)
+    sv = seed_valid.repeat_interleave(k, dim=0)    # (B,)
+    det = refine_faces(nets.mtcnn, frames, sb, sv, cfg.mtcnn, dtype=dtype)
+    box, _score, ok = select_primary_face(det, largest=cfg.mtcnn.select_largest)
+    is_kf = (torch.arange(b, device=frames.device) % k) == 0
+    box = torch.where(is_kf[:, None], sb, box)
+    has_face = torch.where(is_kf, sv, ok)
+    return embed_tail(nets, frames, box, has_face, cfg, dtype)
+
+
+def frame_step_propagate_yuv(nets: DetectorNets, packed: torch.Tensor,
+                             seed_boxes: torch.Tensor, seed_valid: torch.Tensor,
+                             cfg: DetectorConfig, dtype, k: Optional[int] = None) -> FrameOutputs:
+    frames = i420_to_bgr(packed, rgb=not cfg.reference_compat)
+    return frame_step_propagate(nets, frames, seed_boxes, seed_valid, cfg, dtype, k=k)
+
+
+class Segment(NamedTuple):
+    """One uploaded batch: the sampled frame indices of its valid rows and
+    the (B, ...) uint8 device batch (rows past them are zeros)."""
+
+    indices: List[int]
+    dev: torch.Tensor
+
+    @property
+    def n_valid(self) -> int:
+        return len(self.indices)
 
 
 @contextlib.contextmanager
@@ -150,6 +220,33 @@ class Detector:
             device = "cuda"
         self.device = torch.device(device)
         self.config = config or DetectorConfig()
+        cfg = self.config
+        # detect_interval: a fixed K (self._detect_k) or "auto" (None).
+        self._auto_interval = cfg.detect_interval == "auto"
+        if self._auto_interval:
+            kmax = cfg.auto_interval_max
+            if kmax < 2 or (kmax & (kmax - 1)):
+                raise ValueError(f"auto_interval_max must be a power of two >= 2, got {kmax}")
+            if cfg.frame_batch % kmax:
+                raise ValueError(f"frame_batch ({cfg.frame_batch}) must be divisible by "
+                                 f"auto_interval_max ({kmax})")
+            self._detect_k = None
+        else:
+            di = cfg.detect_interval
+            if not isinstance(di, int) or di < 1:
+                raise ValueError(f'detect_interval must be an int >= 1 or "auto", got {di!r}')
+            if di > 1 and cfg.frame_batch % di:
+                raise ValueError(f"frame_batch ({cfg.frame_batch}) must be divisible by "
+                                 f"detect_interval ({di}): keyframes batch across {di} "
+                                 f"segments at frame_batch/{di} per segment")
+            self._detect_k = di
+        # "auto" telemetry: segments run through full detection and through
+        # refinement, and the ladder's current rung.
+        self.auto_keyframe_segments = 0
+        self.auto_refine_segments = 0
+        self.auto_interval_current = 1
+        # Segments that ``propagate_fallback`` re-ran through the full step.
+        self.fallback_segments = 0
         self.dtype = getattr(torch, self.config.compute_dtype)
         nets = {name: m.to(self.device) for name, m in load_all(params, weights_dir).items()}
         self.nets = DetectorNets(
@@ -161,15 +258,18 @@ class Detector:
     def _precision(self):
         return full_float32() if self.dtype == torch.float32 else contextlib.nullcontext()
 
+    def _run(self, fn, *args, **kwargs):
+        """``fn(nets, *args, config, dtype, **kwargs)``, one of the frame steps."""
+        with torch.inference_mode(), self._precision():
+            return fn(self.nets, *args, self.config, self.dtype, **kwargs)
+
     def step(self, frames: torch.Tensor) -> FrameOutputs:
         """One batch of (B, H, W, 3) uint8 frames on the device."""
-        with torch.inference_mode(), self._precision():
-            return frame_step(self.nets, frames, self.config, self.dtype)
+        return self._run(frame_step, frames)
 
     def step_yuv(self, packed: torch.Tensor) -> FrameOutputs:
         """One batch of packed I420 (B, 3H/2, W) uint8 frames on the device."""
-        with torch.inference_mode(), self._precision():
-            return frame_step_yuv(self.nets, packed, self.config, self.dtype)
+        return self._run(frame_step_yuv, packed)
 
     def temporal(self, out: FrameOutputs, n_valid: int, state: TemporalState) -> TemporalResult:
         with torch.inference_mode():
@@ -197,9 +297,111 @@ class Detector:
         then the V plane), converted on the device."""
         return self._analyze(packed, fps, yuv=True)
 
+    def _keyframes(self, cycle: List[Segment], k: int) -> torch.Tensor:
+        """Every k-th row of each segment of the cycle, gathered on the
+        device into one full-width seed batch (zero rows where the last
+        cycle is short)."""
+        rows = torch.cat([seg.dev[::k] for seg in cycle])
+        pad = self.config.frame_batch - rows.shape[0]
+        if pad:
+            rows = torch.cat([rows, rows.new_zeros((pad,) + tuple(rows.shape[1:]))])
+        return rows
+
+    def _propagate_cycle(self, cycle: List[Segment], k: int, yuv: bool, count: bool):
+        """One keyframe cycle of k segments: the cascade-only seed step on
+        their gathered keyframes, then each segment's propagate step.
+        Yields (segment, outputs, seeded, lost, fell_back); with ``count``
+        (a host sync per segment) ``seeded``/``lost`` count the segment's
+        seeded frames and those whose refinement found no face, and with
+        ``propagate_fallback`` a segment that lost more than half of them
+        is re-run through the full step."""
+        full, detect, propagate = (
+            (frame_step_yuv, frame_step_detect_yuv, frame_step_propagate_yuv) if yuv
+            else (frame_step, frame_step_detect, frame_step_propagate))
+        bk = self.config.frame_batch // k
+        seed_box, seed_hf = self._run(detect, self._keyframes(cycle, k))
+        sv_host = seed_hf.cpu().numpy() if count else None
+        for j, seg in enumerate(cycle):
+            rows = slice(j * bk, (j + 1) * bk)
+            out = self._run(propagate, seg.dev, seed_box[rows], seed_hf[rows], k=k)
+            seeded = lost = 0
+            fell_back = False
+            if count:
+                hf = out.has_face[: seg.n_valid].cpu().numpy()
+                sv = np.repeat(sv_host[rows], k)[: seg.n_valid]
+                seeded, lost = int(sv.sum()), int((sv & ~hf).sum())
+                if self.config.propagate_fallback and seeded and lost * 2 > seeded:
+                    out = self._run(full, seg.dev)
+                    fell_back = True
+                    self.fallback_segments += 1
+            yield seg, out, seeded, lost, fell_back
+
+    def _propagate_outputs(self, segments, yuv: bool):
+        """(segment, outputs) with full detection on keyframes only, at the
+        fixed interval K: K segments per cycle."""
+        k = self._detect_k
+        while True:
+            cycle = list(itertools.islice(segments, k))
+            if not cycle:
+                return
+            for seg, out, *_ in self._propagate_cycle(cycle, k, yuv,
+                                                      self.config.propagate_fallback):
+                yield seg, out
+
+    def _propagate_outputs_auto(self, segments, yuv: bool):
+        """(segment, outputs) with adaptive keyframing: rung 1 is full
+        detection per segment and escalates once at least half the valid
+        rows hold a face; a rung k > 1 is the fixed-k cycle, after which the
+        ladder collapses to 1 if the cycle lost more than half its seeded
+        frames, or doubles (up to ``auto_interval_max``) if it lost at most
+        ``auto_escalate_lost`` of them."""
+        cfg = self.config
+        kmax = cfg.auto_interval_max
+        full = frame_step_yuv if yuv else frame_step
+        k = 1
+        while True:
+            if k == 1:
+                seg = next(segments, None)
+                if seg is None:
+                    return
+                out = self._run(full, seg.dev)
+                self.auto_keyframe_segments += 1
+                hf = out.has_face[: seg.n_valid].cpu().numpy()
+                if seg.n_valid and hf.mean() >= 0.5:
+                    k = min(2, kmax)
+                self.auto_interval_current = k
+                yield seg, out
+                continue
+            cycle = list(itertools.islice(segments, k))
+            if not cycle:
+                return
+            cycle_seeded = cycle_lost = 0
+            for seg, out, seeded, lost, fell_back in self._propagate_cycle(
+                    cycle, k, yuv, True):
+                self.auto_refine_segments += 1
+                self.auto_keyframe_segments += fell_back
+                cycle_seeded += seeded
+                cycle_lost += lost
+                yield seg, out
+            if cycle_seeded == 0 or cycle_lost * 2 > cycle_seeded:
+                k = 1                                   # collapse: re-acquire
+            elif cycle_lost <= cfg.auto_escalate_lost * cycle_seeded:
+                k = min(k * 2, kmax)                    # stable: escalate
+            self.auto_interval_current = k
+
+    def _segment_outputs(self, segments, yuv: bool):
+        """(segment, outputs): full detection per segment, the keyframe
+        cycles of a fixed K > 1, or the "auto" ladder."""
+        segments = iter(segments)
+        if self._auto_interval:
+            return self._propagate_outputs_auto(segments, yuv)
+        if self._detect_k > 1:
+            return self._propagate_outputs(segments, yuv)
+        full = frame_step_yuv if yuv else frame_step
+        return ((seg, self._run(full, seg.dev)) for seg in segments)
+
     def _analyze(self, frames: np.ndarray, fps: int, *, yuv: bool) -> VideoAnalysis:
         cfg = self.config
-        step = self.step_yuv if yuv else self.step
         t_start = time.perf_counter()
         timings = {"upload": 0.0, "device": 0.0}
         n = frames.shape[0]
@@ -208,6 +410,16 @@ class Detector:
         state = init_temporal_state(self.embedding_dim, self.device)
         records: List[FrameRecord] = []
         flagged_total = 0
+
+        def segments():
+            for s in range(0, len(sampled), b):
+                chunk = sampled[s:s + b]
+                t0 = time.perf_counter()
+                stack = np.zeros((b,) + frames.shape[1:], np.uint8)
+                stack[: len(chunk)] = frames[chunk]
+                dev = torch.from_numpy(stack).to(self.device, non_blocking=True)
+                timings["upload"] += time.perf_counter() - t0
+                yield Segment(chunk, dev)
 
         def fetch(chunk, out, res):
             nonlocal flagged_total
@@ -226,21 +438,15 @@ class Detector:
                 ))
 
         # One-deep pipeline: batch N+1 is uploaded and enqueued before the
-        # host waits on batch N's results.
+        # host waits on batch N's results (with propagation, a keyframe
+        # cycle's batches are all uploaded before its seed step).
         in_flight = None
-        for s in range(0, len(sampled), b):
-            chunk = sampled[s:s + b]
-            t0 = time.perf_counter()
-            stack = np.zeros((b,) + frames.shape[1:], np.uint8)
-            stack[: len(chunk)] = frames[chunk]
-            dev = torch.from_numpy(stack).to(self.device, non_blocking=True)
-            timings["upload"] += time.perf_counter() - t0
-            out = step(dev)
-            res = self.temporal(out, len(chunk), state)
+        for seg, out in self._segment_outputs(segments(), yuv):
+            res = self.temporal(out, seg.n_valid, state)
             state = res.state
             if in_flight is not None:
                 fetch(*in_flight)
-            in_flight = (chunk, out, res)
+            in_flight = (seg.indices, out, res)
         if in_flight is not None:
             fetch(*in_flight)
 

@@ -6,7 +6,10 @@ validity masks: the area pyramid and the P-Net trunk per level, ONE exact
 global top-k over every pyramid cell (boxes rebuilt from the flat cell
 index), per-scale NMS grouped by level then cross-scale NMS, 24x24 area
 crops and R-Net, 48x48 area crops and O-Net with 'min' NMS.  All four NMS
-calls go through kernel K2 and both stage crops through kernel K3.
+calls go through kernel K2.  The stage crops go through kernel K3, or
+through kernel K5 on the exact crop chain with ``use_fused_crops=1``.
+``refine_faces`` is the track-propagated entry: stages 2-3 only, seeded
+from a known box per frame.
 
 Numeric conventions of the upstream cascade are kept: (x - 127.5) / 128
 normalization, the (2x+1)/scale cell-to-box mapping, stage-1 regression
@@ -16,13 +19,16 @@ landmark mapping before the final regression.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn as nn
 
 from truely_tpu_torch.config import MTCNNConfig
 from truely_tpu_torch.ops.boxes import bbreg, pad_crop_bounds, rerec
+from truely_tpu_torch.ops.crop_area_fused import (
+    crop_resize_area_fused, prep_frames_for_fused_crops,
+)
 from truely_tpu_torch.ops.nms import NEG_INF, nms_masked_batch
 from truely_tpu_torch.ops.resize import crop_resize_area, resize_area
 from truely_tpu_torch.ops.topk import exact_topk_lastdim
@@ -135,19 +141,41 @@ def crop_quant(cfg: MTCNNConfig, frames: torch.Tensor, dtype) -> int:
     return 1
 
 
-def _stage_crops(frames, boxes, out_size, quant):
-    h, w = frames.shape[1], frames.shape[2]
-    return crop_resize_area(frames, pad_crop_bounds(boxes, w, h), out_size, quant=quant)
+class CropSource(NamedTuple):
+    """What the stage crops read, prepared once per frame step."""
+
+    frames: torch.Tensor            # (B, H, W, 3) uint8
+    quant: int                      # stage-crop snap grid (1 = exact)
+    planar: Optional[torch.Tensor]  # (B, 3, H, W) uint8 for kernel K5, or None
 
 
-def _stages23(nets: MTCNNNets, frames, boxes, scores, valid, cfg: MTCNNConfig,
-              *, k2: int, k3: int, dtype) -> Detections:
-    """R-Net refine and O-Net score/landmarks on a candidate set."""
-    b = frames.shape[0]
+def prep_crop_frames(frames: torch.Tensor, cfg: MTCNNConfig, dtype) -> CropSource:
+    """The crop quant and, with ``use_fused_crops == 1`` on exact crops, the
+    planar frames of kernel K5: one layout pass shared by both stage crops
+    (counterpart of ``_prep_crop_frames``)."""
     quant = crop_quant(cfg, frames, dtype)
+    planar = (prep_frames_for_fused_crops(frames)
+              if cfg.use_fused_crops == 1 and quant == 1 else None)
+    return CropSource(frames, quant, planar)
+
+
+def _stage_crops(src: CropSource, boxes, out_size):
+    """q > 1: K3 on the snapped grid; planar frames: K5; else K3 at q=1."""
+    h, w = src.frames.shape[1], src.frames.shape[2]
+    bounds = pad_crop_bounds(boxes, w, h)
+    if src.planar is not None:
+        return crop_resize_area_fused(src.planar, bounds, out_size, src_hw=(h, w))
+    return crop_resize_area(src.frames, bounds, out_size, quant=src.quant)
+
+
+def _stages23(nets: MTCNNNets, src: CropSource, boxes, scores, valid, cfg: MTCNNConfig,
+              *, k2: int, k3: int, dtype) -> Detections:
+    """R-Net refine and O-Net score/landmarks on a candidate set: the shared
+    tail of full detection and of track-propagated refinement."""
+    b = src.frames.shape[0]
 
     scores, valid, boxes = _topk_gather(scores, valid, k2, boxes)
-    crops = _stage_crops(frames, boxes, 24, quant)
+    crops = _stage_crops(src, boxes, 24)
     prob, reg = nets.rnet(_normalize(crops.reshape(b * k2, 24, 24, 3)), dtype)
     prob = prob.reshape(b, k2)
     valid = valid & (prob > cfg.thresholds[1])
@@ -158,7 +186,7 @@ def _stages23(nets: MTCNNNets, frames, boxes, scores, valid, cfg: MTCNNConfig,
     boxes = rerec(bbreg(boxes, reg.reshape(b, k2, 4)))
 
     scores, valid, boxes = _topk_gather(scores, valid, k3, boxes)
-    crops = _stage_crops(frames, boxes, 48, quant)
+    crops = _stage_crops(src, boxes, 48)
     prob, reg, lmk = nets.onet(_normalize(crops.reshape(b * k3, 48, 48, 3)), dtype)
     prob = prob.reshape(b, k3)
     lmk = lmk.reshape(b, k3, 10)
@@ -182,8 +210,42 @@ def detect_faces(nets: MTCNNNets, frames: torch.Tensor, cfg: MTCNNConfig = MTCNN
     feeds BGR)."""
     boxes, scores, valid = _stage1(nets, frames, cfg, dtype)
     k2 = min(cfg.rnet_capacity, boxes.shape[1])
-    return _stages23(nets, frames, boxes, scores, valid, cfg,
+    return _stages23(nets, prep_crop_frames(frames, cfg, dtype), boxes, scores, valid, cfg,
                      k2=k2, k3=min(cfg.onet_capacity, k2), dtype=dtype)
+
+
+# Refinement candidates: concentric squares around the seed box at these
+# scales.  Four fill the capacity; the largest tolerates about half a side
+# of face motion between keyframes, and O-Net's regression re-localizes
+# within a candidate.
+PROPAGATE_SCALES = (1.0, 1.3, 1.65, 2.0)
+
+
+def refine_faces(nets: MTCNNNets, frames: torch.Tensor, seed_boxes: torch.Tensor,
+                 seed_valid: torch.Tensor, cfg: MTCNNConfig = MTCNNConfig(),
+                 *, dtype=torch.bfloat16) -> Detections:
+    """Track-propagated detection: stages 2-3 only, seeded from one known
+    box per frame (seed_boxes (B, 4) f32, seed_valid (B,) bool).  The
+    candidates are concentric squares at ``PROPAGATE_SCALES`` with
+    descending placeholder scores (tightest first, so the top-k gather
+    keeps their order); R-Net and O-Net re-score, refine and can reject
+    them.  A frame whose seed is not valid yields no detection."""
+    b = frames.shape[0]
+    c = len(PROPAGATE_SCALES)
+    sq = rerec(seed_boxes)
+    cx = (sq[..., 0] + sq[..., 2]) * 0.5
+    cy = (sq[..., 1] + sq[..., 3]) * 0.5
+    side = sq[..., 2] - sq[..., 0]
+    cands = []
+    for s in PROPAGATE_SCALES:
+        half = side * (0.5 * s)
+        cands.append(torch.stack([cx - half, cy - half, cx + half, cy + half], dim=-1))
+    boxes = torch.stack(cands, dim=1)                                  # (B, C, 4)
+    valid = seed_valid[:, None].expand(b, c)
+    ranks = 1.0 - 0.01 * torch.arange(c, dtype=torch.float32, device=frames.device)
+    scores = torch.where(valid, ranks[None, :], 0.0)
+    return _stages23(nets, prep_crop_frames(frames, cfg, dtype), boxes, scores, valid, cfg,
+                     k2=c, k3=c, dtype=dtype)
 
 
 def select_primary_face(det: Detections, *, largest: bool = True
