@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (``truely_tpu_torch``) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--profile DIR]
+    python3 chip_smoke.py [--profile DIR] [--kernels-only]
 
 Phases, in order; any failure raises and exits non-zero:
 
@@ -11,34 +11,44 @@ Phases, in order; any failure raises and exits non-zero:
 3. kernels: K1-K5 at the shapes of one production step (1080p,
    frame_batch 32) on seeded random inputs, each held with ``torch.equal``
    to its plain PyTorch version run on the same CUDA tensors (K5 also to K3
-   at q=1), and timed with CUDA events beside the plain version, a PyTorch
-   library call where one computes the same function, and its bound.  Each
-   call form belongs to a path: the score path (bf16 defaults), the
-   propagate path (its keyframe step and its refine step) or neither (forms
-   kept for comparison);
+   at q=1), and timed beside the plain version, a PyTorch library call
+   where one computes the same function, and its bound: ``ms`` is the
+   CUDA-event time of back-to-back calls (the issue rate), ``host_ms``
+   the host's cost of issuing a call (``device_ms`` comes in phase 7).  Each call form belongs to a path: the score path
+   (bf16 defaults), the propagate path (its keyframe step and its refine
+   step) or neither (forms kept for comparison).  K3's prep (the integral
+   image, once per frame step) is a form of its own with bound 0; its crop
+   forms cut from a prepared integral.  Then the host's cost per call of
+   K4's wrapper and of its parts (the launch floor);
 4. end to end, score path: ``Detector`` at the bf16 defaults with its own
    seeded weights runs ``analyze_i420`` on seeded synthetic 1080p I420
    frames, one warm-up batch and then four batches of 32 sampled frames.
    Every launch count is set to 0 just before that run and read just after
-   it; K1-K4 must have launched and K5 not;
+   it; K1-K4 (K3's prep and its crop) must have launched and K5 not;
 5. end to end, propagate path: the same at ``detect_interval=4`` and then
    ``"auto"``, on the exact crop chain with ``use_fused_crops=1`` and
    thresholds of 0, on stable content (a few seeded base frames shifted by
    a few pixels), one warm-up cycle and then 16 batches; K1, K2, K4 and K5
-   must have launched and K3 not, and the "auto" ladder must have climbed
+   must have launched and neither K3's prep nor its crop, and the "auto"
+   ladder must have climbed
    (the seeded R-Net/O-Net box regressions are scaled down for these runs,
    see PROP_REGRESSION_SCALE).  Each run prints how many segments the
    propagate fallback re-ran through the full step;
 6. float32 cross-checks of card against CPU: GOLDEN_CONFIG (frame_batch 16,
    TF32 off) over 16 synthetic 640x360 frames, and the propagate path
-   (``detect_interval=4``, ``use_fused_crops=1``) over 16 stable ones.
+   (``detect_interval=4``, ``use_fused_crops=1``) over 16 stable ones;
+7. device times: ``device_ms`` of every kernel form and library call, the
+   kernels' own time from torch.profiler over 20 calls.  It runs last:
+   once the profiler has traced the card, every launch costs the host more
+   for the rest of the process, which would slow the phases above.
 
 The line before the last is one JSON object with every kernel's numbers;
 the last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device
 the script exits non-zero and prints no result.  ``--profile DIR`` also
 traces one score-path batch and one K=4 propagate cycle (four batches) with
 ``torch.profiler`` and writes their kernel tables and Chrome traces into
-DIR.
+DIR.  ``--kernels-only`` runs phases 1-3 and 7 and prints no result: copied
+into another tree of the port, it times that tree's kernels the same way.
 """
 
 from __future__ import annotations
@@ -118,6 +128,43 @@ def cuda_ms(fn: Callable[[], object], window_ms: float = 100.0) -> float:
     torch.cuda.synchronize()
     estimate = mean_ms(3)
     return mean_ms(min(1000, max(3, int(window_ms / max(estimate, 1e-3)))))
+
+
+def profiled_device_us(prof) -> float:
+    """Microseconds of every device kernel in a torch.profiler run (the
+    attribute's name changed across PyTorch versions)."""
+    return sum(getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+               for e in prof.key_averages()
+               if str(getattr(e, "device_type", "")).endswith("CUDA"))
+
+
+def device_ms(fn: Callable[[], object], calls: int = 20) -> float:
+    """The device's own milliseconds per call of ``fn``: the sum of the
+    kernel times torch.profiler records over ``calls`` calls after a
+    warm-up, divided by the calls.  Unlike ``cuda_ms`` it leaves out what
+    issuing a call costs the host."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return profiled_device_us(prof) / 1e3 / calls
+
+
+def host_ms(fn: Callable[[], object], calls: int = 50) -> float:
+    """Host milliseconds per call of ``fn`` issued back to back, with no
+    synchronisation inside the window: what issuing a call costs."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return t * 1e3 / calls
 
 
 def bound_ms(nbytes: float, ops: float) -> tuple:
@@ -280,14 +327,36 @@ def kernel_forms(device) -> List[Form]:
         boxes = random_boxes(g, b, k, h, w, device, clusters=1 if k == 4 else 8)
         return pad_crop_bounds(rerec(boxes), w, h)
 
+    # K3 is a prep (the integral image, once per frame step: bound 0, its
+    # bytes are no work the crops must do) and a crop per stage crop, timed
+    # from a prepared integral so that the prep counts once per step.  A
+    # tree from before the prep (run with --kernels-only for before/after
+    # timings) has the one-call form.
+    split = hasattr(resize, "crop_area_integral")
+    integrals = {}
+    for quant, paths in ((4, (SCORE,)), (1, ())):
+        if not split:
+            continue
+        integrals[quant] = resize.crop_area_integral(frames, quant)
+        forms.append(Form(
+            "crop_resize_area", f"prep q={quant}", paths,
+            lambda q=quant: resize.crop_area_integral(frames, q),
+            lambda q=quant: resize.crop_area_integral_plain(frames, q), None, nbytes=0, ops=0))
     for quant, k, o, paths in ((4, 64, 24, (SCORE,)), (4, 32, 48, (SCORE,)),
                                (4, 4, 24, ()), (4, 4, 48, ()),
                                (1, 64, 24, ()), (1, 32, 48, ())):
         bounds = crop_bounds(k)
+        if split:
+            run = lambda bd=bounds, o=o, q=quant: resize.crop_resize_area_from_integral(
+                integrals[q], bd, o, quant=q)
+            plain = lambda bd=bounds, o=o, q=quant: resize.crop_resize_area_from_integral_plain(
+                integrals[q], bd, o, quant=q)
+        else:
+            run = lambda bd=bounds, o=o, q=quant: resize.crop_resize_area(frames, bd, o, quant=q)
+            plain = lambda bd=bounds, o=o, q=quant: resize.crop_resize_area_plain(
+                frames, bd, o, quant=q)
         forms.append(Form(
-            "crop_resize_area", f"K={k} O={o} q={quant}", paths,
-            lambda bd=bounds, o=o, q=quant: resize.crop_resize_area(frames, bd, o, quant=q),
-            lambda bd=bounds, o=o, q=quant: resize.crop_resize_area_plain(frames, bd, o, quant=q),
+            "crop_resize_area", f"K={k} O={o} q={quant}", paths, run, plain,
             None, nbytes=crop_bytes(bounds, o, quant), ops=crop_ops(bounds, o, quant)))
     for k, o in ((64, 24), (32, 48), (4, 24), (4, 48)):
         bounds = crop_bounds(k)
@@ -346,17 +415,19 @@ SOURCES = {
     "crop_resize_area_fused": ("truely_tpu_torch/csrc/crop_area_fused.cu",
                                "truely_tpu/ops/crop_area_fused.py:155"),
 }
+# K3's prep: counted apart from its crops, and reported beside them.
+K3_PREP = "crop_area_integral"
+K3_PARTS = ("crop_resize_area", K3_PREP)
 # The path whose run gives a kernel's "launches" and whose forms give its
 # per-step times in the kernels line.
-MAIN_PATH = {name: SCORE for name in SOURCES}
+MAIN_PATH = {name: SCORE for name in (*SOURCES, K3_PREP)}
 MAIN_PATH["crop_resize_area_fused"] = PROPAGATE
 
 
-def kernel_phase(device) -> dict:
-    """Every form checked and timed; returns kernel name -> summary, with
-    per-path times (the sum over the forms of each path, one step's calls:
-    for the propagate path one keyframe step's and one refine step's)."""
-    forms = kernel_forms(device)
+def kernel_phase(forms: List[Form]) -> List[dict]:
+    """Every form checked and timed on the host's side: its issue rate,
+    its plain version's and library call's, the host's cost per call, and
+    its bound.  Returns one row per form."""
     rows, failures = [], []
     for f in forms:
         got, want = f.run(), f.plain()
@@ -367,20 +438,41 @@ def kernel_phase(device) -> dict:
         ms = cuda_ms(f.run)
         plain_ms = cuda_ms(f.plain)
         lib_ms = cuda_ms(f.library) if f.library else None
+        h_ms = host_ms(f.run)
+        lib_h_ms = host_ms(f.library) if f.library else None
         b_ms, by = bound_ms(f.nbytes, f.ops)
         rows.append(dict(kernel=f.kernel, form=f.label, paths=list(f.paths), equal=equal,
-                         max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                         bound_ms=b_ms, bound_by=by, bytes=f.nbytes, ops=f.ops))
+                         max_abs_err=err, ms=ms, host_ms=h_ms, plain_ms=plain_ms,
+                         library_ms=lib_ms, library_host_ms=lib_h_ms, bound_ms=b_ms, bound_by=by,
+                         bytes=f.nbytes, ops=f.ops))
         log(f"kernel {f.kernel} [{f.label}] paths={'+'.join(f.paths) or 'none'}: "
             f"equal={equal}{' (to plain and to K3 q=1)' if f.same_as else ''} "
-            f"max_abs_err={err} ms={ms:.4f} plain_ms={plain_ms:.4f} "
+            f"max_abs_err={err} ms={ms:.4f} host_ms={h_ms:.4f} plain_ms={plain_ms:.4f} "
             f"library_ms={'null' if lib_ms is None else f'{lib_ms:.4f}'} "
+            f"library_host_ms={'null' if lib_h_ms is None else f'{lib_h_ms:.4f}'} "
             f"bound_ms={b_ms:.5f} ({by}: {f.nbytes:.3e} B, {f.ops:.3e} ops)")
         if not equal:
             failures.append(f"{f.kernel} [{f.label}] differs from its plain version (max {err})")
     require(not failures, "; ".join(failures))
     log(f"kernels: all {len(rows)} forms equal to their plain versions; bounds from {PEAKS}")
+    return rows
 
+
+def device_phase(forms: List[Form], rows: List[dict]) -> None:
+    """Each form's and library call's device time, from torch.profiler,
+    into ``rows``.  It runs last: once the profiler has traced the card, a
+    launch costs the host more for the rest of the process."""
+    for f, row in zip(forms, rows):
+        row["device_ms"] = device_ms(f.run)
+        row["library_device_ms"] = device_ms(f.library) if f.library else None
+        log(f"kernel {f.kernel} [{f.label}]: device_ms={row['device_ms']:.4f} library_device_ms="
+            f"{'null' if f.library is None else format(row['library_device_ms'], '.4f')}")
+
+
+def kernel_summary(rows: List[dict]) -> dict:
+    """Kernel name -> summary, with per-path times (the sum over the forms
+    of each path, one step's calls: for the propagate path one keyframe
+    step's and one refine step's)."""
     summary = {}
     for name in SOURCES:
         mine = [r for r in rows if r["kernel"] == name]
@@ -389,18 +481,48 @@ def kernel_phase(device) -> dict:
             on = [r for r in mine if path in r["paths"]]
             if not on:
                 continue
-            libs = [r["library_ms"] for r in on]
+
+            def total(key):
+                vals = [r[key] for r in on]
+                return None if None in vals else sum(vals)
+
             per_path[path] = dict(
-                ms=sum(r["ms"] for r in on), plain_ms=sum(r["plain_ms"] for r in on),
-                bound_ms=sum(r["bound_ms"] for r in on),
+                ms=total("ms"), device_ms=total("device_ms"), plain_ms=total("plain_ms"),
+                bound_ms=total("bound_ms"),
                 bound_by=max(on, key=lambda r: r["bound_ms"])["bound_by"],
-                library_ms=None if None in libs else sum(libs))
+                library_ms=total("library_ms"), library_device_ms=total("library_device_ms"))
         summary[name] = dict(
             max_abs_err=max(r["max_abs_err"] for r in mine), paths=per_path,
-            forms=[{k: r[k] for k in ("form", "paths", "ms", "plain_ms", "library_ms",
+            forms=[{k: r[k] for k in ("form", "paths", "ms", "device_ms", "host_ms", "plain_ms",
+                                      "library_ms", "library_device_ms", "library_host_ms",
                                       "bound_ms", "bound_by")} for r in mine])
         log(f"kernel {name} per step: " + json.dumps(per_path))
     return summary
+
+
+def launch_floor(device) -> Dict[str, float]:
+    """Host microseconds per call, issued back to back, of K4's wrapper at
+    the score path's shape and of its parts: the output's allocation and
+    the bare launch through ``cuda_build.launch``."""
+    from truely_tpu_torch.ops import cuda_build, resize
+
+    b, o = STEP_B, 80
+    frames = torch.zeros((b, STEP_H, STEP_W, 3), dtype=torch.uint8, device=device)
+    bounds = torch.tensor([[[100, 200, 500, 600]]] * b, dtype=torch.int32, device=device)
+    out = torch.empty((b, 1, o, o, 3), dtype=torch.float32, device=device)
+    P, I = cuda_build.P, cuda_build.I
+    args = (frames.data_ptr(), bounds.data_ptr(), out.data_ptr(), b, STEP_H, STEP_W, 1, o)
+    parts = {
+        "wrapper": lambda: resize.crop_resize_bilinear(frames, bounds, o),
+        "new_empty of the output": lambda: frames.new_empty((b, 1, o, o, 3), dtype=torch.float32),
+        "cuda_build.launch alone": lambda: cuda_build.launch(
+            "crop_bilinear", "tt_crop_bilinear", [P, P, P, I, I, I, I, I], *args,
+            device=frames.device),
+        "an empty Python call": lambda: None,
+    }
+    us = {name: host_ms(fn, calls=500) * 1e3 for name, fn in parts.items()}
+    log("launch floor (host us per call, back to back, K4 at B=32 O=80): " + json.dumps(us))
+    return us
 
 
 # ---------------------------------------------------------------------------
@@ -412,7 +534,8 @@ def launch_counters():
     from truely_tpu_torch.ops import crop_area_fused, nms, resize, yuv
 
     return {"i420_to_bgr": yuv.i420_to_bgr, "nms_masked_batch": nms.nms_masked_batch,
-            "crop_resize_area": resize.crop_resize_area,
+            "crop_resize_area": resize.crop_resize_area_from_integral,
+            K3_PREP: resize.crop_area_integral,
             "crop_resize_bilinear": resize.crop_resize_bilinear,
             "crop_resize_area_fused": crop_area_fused.crop_resize_area_fused}
 
@@ -487,11 +610,7 @@ def profile_run(det, packed: np.ndarray, out_dir: str, name: str) -> None:
     with open(os.path.join(out_dir, f"{name}.txt"), "w") as f:
         f.write(table)
     prof.export_chrome_trace(os.path.join(out_dir, f"{name}.json"))
-    # Time of every device kernel (the attribute's name changed across
-    # PyTorch versions).
-    device_us = sum(getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
-                    for e in prof.key_averages()
-                    if str(getattr(e, "device_type", "")).endswith("CUDA"))
+    device_us = profiled_device_us(prof)
     log(f"profile {name}: {packed.shape[0]} frames {wall * 1e3:.2f} ms wall, "
         f"{device_us / 1e3:.2f} ms of device kernels (idle share {1 - device_us / 1e6 / wall:.3f}); "
         f"table in {out_dir}/{name}.txt")
@@ -584,9 +703,10 @@ def propagate_phase(profile_dir: Optional[str]) -> Dict[str, int]:
     for interval in (4, "auto"):
         det = steady_regression(Detector(DetectorConfig(detect_interval=interval, mtcnn=mt)))
         _, launches = drive(det, packed, 4 * b, f"propagate K={interval}")
-        silent = [k for k, v in launches.items() if v <= 0 and k != "crop_resize_area"]
+        silent = [k for k, v in launches.items() if v <= 0 and k not in K3_PARTS]
         require(not silent, f"kernels not launched on the propagate path: {silent}")
-        require(launches["crop_resize_area"] == 0, "K3 launched where K5 should run")
+        require(all(launches[k] == 0 for k in K3_PARTS),
+                "K3 (its prep or its crop) launched where K5 should run")
         if interval == "auto":
             log(f"propagate auto telemetry (warm-up and timed runs): rung "
                 f"{det.auto_interval_current}, keyframe segments {det.auto_keyframe_segments}, "
@@ -646,6 +766,9 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", metavar="DIR", default=None,
                     help="also trace one score-path batch and one K=4 propagate cycle into DIR")
+    ap.add_argument("--kernels-only", action="store_true",
+                    help="stop after the kernel phase and the launch floor (no result line); "
+                         "for timing another tree's kernels beside this one's")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -664,21 +787,34 @@ def main(argv=None) -> int:
         regs = [ln.strip() for ln in report.splitlines() if "registers" in ln]
         log(f"build {src}: {'; '.join(regs)}")
 
-    summary = kernel_phase("cuda")
-    launches = {SCORE: e2e_phase(args.profile), PROPAGATE: propagate_phase(args.profile)}
-    xcheck_phase()
+    forms = kernel_forms("cuda")
+    rows = kernel_phase(forms)
+    launch_floor("cuda")
+    if not args.kernels_only:
+        launches = {SCORE: e2e_phase(args.profile), PROPAGATE: propagate_phase(args.profile)}
+        xcheck_phase()
+    device_phase(forms, rows)
+    summary = kernel_summary(rows)
+    if args.kernels_only:
+        return 0
 
     kernels = []
     for kname, (source, replaces) in SOURCES.items():
         s, path = summary[kname], MAIN_PATH[kname]
         main_path = s["paths"][path]
-        kernels.append(dict(
+        entry = dict(
             name=kname, route="cuda", source=source, replaces=replaces, path=path,
             launches=launches[path][kname], max_abs_err=s["max_abs_err"], ms=main_path["ms"],
-            plain_ms=main_path["plain_ms"], bound_ms=main_path["bound_ms"],
-            bound_by=main_path["bound_by"], library_ms=main_path["library_ms"],
+            device_ms=main_path["device_ms"], plain_ms=main_path["plain_ms"],
+            bound_ms=main_path["bound_ms"], bound_by=main_path["bound_by"],
+            library_ms=main_path["library_ms"],
+            library_device_ms=main_path["library_device_ms"],
             launches_by_path={p: launches[p][kname] for p in launches},
-            per_path=s["paths"], forms=s["forms"]))
+            per_path=s["paths"], forms=s["forms"])
+        if kname == "crop_resize_area":
+            entry["prep_launches"] = launches[path][K3_PREP]
+            entry["prep_launches_by_path"] = {p: launches[p][K3_PREP] for p in launches}
+        kernels.append(entry)
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -81,7 +81,8 @@ def test_i420_extreme_values(yuv):
     np.testing.assert_array_equal(ours, np.asarray(jyuv.i420_to_bgr(jnp.asarray(flat))))
 
 
-@pytest.mark.parametrize("wrapper", ["yuv", "nms", "crop_area", "crop_bilinear"])
+@pytest.mark.parametrize("wrapper", ["yuv", "nms", "crop_area", "crop_bilinear", "crop_integral",
+                                     "crop_from_integral"])
 def test_kernel_wrappers_never_fall_back_off_the_cpu(wrapper):
     """A wrapper takes its plain version only for CPU tensors; any other
     device must reach the kernel (or raise), never the plain version."""
@@ -95,6 +96,9 @@ def test_kernel_wrappers_never_fall_back_off_the_cpu(wrapper):
                                              iou_threshold=0.5),
         "crop_area": lambda: tresize.crop_resize_area(frames, bounds, 4),
         "crop_bilinear": lambda: tresize.crop_resize_bilinear(frames, bounds, 4),
+        "crop_integral": lambda: tresize.crop_area_integral(frames, 4),
+        "crop_from_integral": lambda: tresize.crop_resize_area_from_integral(
+            torch.zeros((1, 3, 3, 3), dtype=torch.int32, **meta), bounds, 4, quant=4),
     }
     with pytest.raises(ValueError, match="CUDA"):
         calls[wrapper]()

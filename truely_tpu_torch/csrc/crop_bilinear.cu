@@ -11,8 +11,15 @@
 // and the file is built with -fmad=false, so no product fuses into an FMA:
 // the result is bit-equal with the plain version.
 //
-// Bound on the H100 by bytes, and tiny: four u8 loads per output pixel and
-// channel.  One thread per output pixel, three channels.
+// Bound on the H100 by bytes, and tiny (2.5 MB of f32 out at B=32, O=80,
+// bound 0.001 ms): its device time, about 3 us, is latency, and a call
+// costs the host several times that (see ops/cuda_build.py:launch).  One
+// thread per output pixel, three channels, each thread computing its own
+// sample coordinates: on NVIDIA H100 80GB HBM3, 700.00 W, this read 0.0031
+// ms of device time where a CTA per box band that first computes the band's
+// coordinate tables into shared memory read 0.0035-0.0037 ms (chip_smoke.py
+// --kernels-only in one call): the tables' barrier lengthens the latency
+// chain more than the per-pixel divisions cost.
 #include "common.cuh"
 
 namespace {

@@ -21,7 +21,9 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Callable, Dict, Iterable, Tuple
+
+import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
@@ -99,26 +101,47 @@ def load(name: str) -> ctypes.CDLL:
 P = ctypes.c_void_p  # a device pointer (tensor.data_ptr()) or a stream
 I = ctypes.c_int
 
+# (library, symbol) -> the ctypes function with its argtypes and restype set,
+# so a launch neither looks the symbol up nor rebuilds ctypes' converters.
+_fns: Dict[Tuple[str, str], Callable[..., int]] = {}
+# The raw cudaStream_t of a device's current stream, read without building a
+# torch.cuda.Stream object per call (PyTorch's own Triton launcher reads it
+# so); a build of PyTorch without the binding reads the Stream object.
+_raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None) or (
+    lambda index: torch.cuda.current_stream(index).cuda_stream)
+# The current device's index, without torch.cuda.current_device()'s lazy
+# initialisation check (a tensor on the card means CUDA is initialised).
+_current_device = getattr(torch._C, "_cuda_getDevice", None) or torch.cuda.current_device
+
 
 def launch(name: str, symbol: str, argtypes, *args, device) -> None:
     """Call ``symbol`` of ``csrc/<name>.cu`` with ``args`` and the current
     stream of ``device`` appended, and raise if the launch failed (the C
-    side returns ``cudaGetLastError()`` right after the launch)."""
-    import torch
-
-    lib = load(name)
-    fn = getattr(lib, symbol)
-    fn.argtypes = [*argtypes, P]
-    fn.restype = ctypes.c_int
-    with torch.cuda.device(device):
-        code = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    side returns ``cudaGetLastError()`` right after the launch).  The
+    symbol is resolved, and its ``argtypes`` (plus the stream) and int
+    return set, once per process.  A device guard is entered only when
+    ``device`` is not the current device."""
+    fn = _fns.get((name, symbol))
+    if fn is None:
+        fn = getattr(load(name), symbol)
+        fn.argtypes = [*argtypes, P]
+        fn.restype = ctypes.c_int
+        _fns[(name, symbol)] = fn
+    current = _current_device()
+    index = current if device.index is None else device.index
+    if index == current:
+        code = fn(*args, _raw_stream(index))
+    else:
+        with torch.cuda.device(index):
+            code = fn(*args, _raw_stream(index))
     if code != 0:
-        raise RuntimeError(f"{symbol}: CUDA error {code}: {lib.tt_error_string(code).decode()}")
+        raise RuntimeError(f"{symbol}: CUDA error {code}: {load(name).tt_error_string(code).decode()}")
 
 
 def require_cuda(what: str, *tensors) -> None:
     """Raise unless every tensor lies on one CUDA device: a kernel takes
     raw device pointers, so a tensor elsewhere would be read as garbage."""
-    devices = {t.device for t in tensors if t is not None}
-    if len(devices) != 1 or next(iter(devices)).type != "cuda":
-        raise ValueError(f"{what}: the kernel needs tensors on one CUDA device, got {devices}")
+    first = tensors[0]
+    if not first.is_cuda or any(t is not None and t.device != first.device for t in tensors[1:]):
+        raise ValueError(f"{what}: the kernel needs tensors on one CUDA device, got "
+                         f"{[None if t is None else str(t.device) for t in tensors]}")

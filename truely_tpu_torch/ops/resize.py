@@ -5,15 +5,18 @@
   matmuls.  These are plain matrix products (the JAX package leaves them to
   XLA too), in float32, or in bf16 on the cascaded production pyramid.
 - ``crop_resize_area``: the same bins over K dynamic boxes per frame, the
-  R-Net/O-Net stage crops: kernel K3 and its plain version.  ``quant=1``
-  is exact; ``quant>1`` snaps boxes to a quant-px grid and bins the
-  quant x quant block sums, still exact integer arithmetic.
+  R-Net/O-Net stage crops: kernel K3 and its plain version, in two steps:
+  ``crop_area_integral`` (the prep, once per frame step: the integral image
+  of the frame) and ``crop_resize_area_from_integral`` (four corner
+  gathers and one division per bin, once per stage crop).  ``quant=1`` is
+  exact; ``quant>1`` snaps boxes to a quant-px grid and bins the quant x
+  quant block sums, still exact integer arithmetic.
 - ``crop_resize_bilinear``: cv2 INTER_LINEAR over one dynamic box per
   frame, the 80x80 face crop: kernel K4 and its plain version.
 
 Kernels (``csrc/crop_area.cu``, ``csrc/crop_bilinear.cu``) replace the
 Pallas kernels ``truely_tpu/ops/crop_fused2.py:crop_resize_area_fused2``
-and ``truely_tpu/ops/crop_pallas.py:crop_resize_bilinear_pallas``.  Both
+and ``truely_tpu/ops/crop_pallas.py:crop_resize_bilinear_pallas``.  All
 are bound by bytes on the H100.  Each wrapper launches its kernel on a CUDA
 tensor and takes the plain version only on a CPU tensor.
 
@@ -91,23 +94,29 @@ def snapped_bounds(bounds: torch.Tensor, quant: int):
     return qx0, qy0, x1, y1
 
 
-def crop_resize_area_plain(frames: torch.Tensor, bounds: torch.Tensor,
-                           out_size: int, *, quant: int = 1) -> torch.Tensor:
-    """Plain version: an exact int32 integral image of the frame (of its
-    quant x quant block sums when quant > 1), four corner gathers per bin,
-    one float32 division per bin."""
+def crop_area_integral_plain(frames: torch.Tensor, quant: int = 1) -> torch.Tensor:
+    """Plain version of the prep: the exact int32 integral image of the
+    frame's quant x quant block sums (of its pixels at quant=1), padded with
+    a zero first row and column: (B, H/q+1, W/q+1, C)."""
     b, h, w, c = frames.shape
     src = frames.to(torch.int32)
     if quant > 1:
         src = src.reshape(b, h // quant, quant, w // quant, quant, c).sum(dim=(2, 4), dtype=torch.int32)
-    x0, y0, x1, y1 = snapped_bounds(bounds, quant)
-    integral = torch.nn.functional.pad(
+    return torch.nn.functional.pad(
         torch.cumsum(torch.cumsum(src, 1, dtype=torch.int32), 2, dtype=torch.int32),
         (0, 0, 1, 0, 1, 0))
+
+
+def crop_resize_area_from_integral_plain(integral: torch.Tensor, bounds: torch.Tensor,
+                                         out_size: int, *, quant: int = 1) -> torch.Tensor:
+    """Plain version of the crop: four corner gathers per bin from the
+    integral, one float32 division per bin."""
+    b = integral.shape[0]
+    x0, y0, x1, y1 = snapped_bounds(bounds, quant)
     sy, ey = bin_edges(y0, y1 - y0, out_size)   # (B, K, O)
     sx, ex = bin_edges(x0, x1 - x0, out_size)
     area = (ey - sy)[..., :, None] * (ex - sx)[..., None, :]
-    bi = torch.arange(b, device=frames.device)[:, None, None, None]
+    bi = torch.arange(b, device=integral.device)[:, None, None, None]
     hq, wq = integral.shape[1] - 1, integral.shape[2] - 1
 
     def corner(ys, xs):
@@ -121,9 +130,85 @@ def crop_resize_area_plain(frames: torch.Tensor, bounds: torch.Tensor,
     return torch.where((area > 0)[..., None], mean, 0.0)
 
 
+def crop_resize_area_plain(frames: torch.Tensor, bounds: torch.Tensor,
+                           out_size: int, *, quant: int = 1) -> torch.Tensor:
+    """Plain version: an exact int32 integral image of the frame (of its
+    quant x quant block sums when quant > 1), four corner gathers per bin,
+    one float32 division per bin."""
+    return crop_resize_area_from_integral_plain(
+        crop_area_integral_plain(frames, quant), bounds, out_size, quant=quant)
+
+
+def crop_area_integral(frames: torch.Tensor, quant: int = 1) -> torch.Tensor:
+    """The prep of the area crops, made once per frame step and shared by
+    both stage crops: frames (B, H, W, 3) uint8, H and W divisible by
+    ``quant`` -> (B, H/q+1, W/q+1, 3) int32 integral image of the quant x
+    quant block sums (wrapping, so a bin's corner difference stays exact
+    whatever the frame size).  Kernel K3's prep on a CUDA tensor, the plain
+    version on a CPU tensor."""
+    if frames.dim() != 4 or frames.dtype != torch.uint8 or frames.shape[3] != 3:
+        raise ValueError(f"expected (B, H, W, 3) uint8 frames, got "
+                         f"{tuple(frames.shape)} {frames.dtype}")
+    b, h, w, c = frames.shape
+    if quant < 1 or h % quant or w % quant:
+        raise ValueError(f"quant {quant} must divide the frame {h}x{w}")
+    if frames.is_cpu:
+        return crop_area_integral_plain(frames, quant)
+    cuda_build.require_cuda("crop_area_integral", frames)
+    frames = frames.contiguous()
+    out = frames.new_empty((b, h // quant + 1, w // quant + 1, c), dtype=torch.int32)
+    P, I = cuda_build.P, cuda_build.I
+    cuda_build.launch("crop_area", "tt_crop_area_integral", [P, P, I, I, I, I],
+                      frames.data_ptr(), out.data_ptr(), b, h, w, quant, device=frames.device)
+    crop_area_integral.launches += 1
+    return out
+
+
+crop_area_integral.launches = 0
+
+
+def crop_resize_area_from_integral(integral: torch.Tensor, bounds: torch.Tensor,
+                                   out_size: int, *, quant: int = 1) -> torch.Tensor:
+    """Area crop-resize of K boxes per frame from :func:`crop_area_integral`.
+
+    integral: (B, H/q+1, W/q+1, 3) int32; bounds: (B, K, 4) int32 half-open
+    pixel bounds (x0, y0, x1, y1) clipped to the frame
+    (ops.boxes.pad_crop_bounds), snapped here to the quant-px grid.  Returns
+    (B, K, O, O, 3) float32 in [0, 255]; empty boxes give zeros.  Kernel
+    K3's crop on CUDA tensors, the plain version on CPU tensors.
+    """
+    if integral.dim() != 4 or integral.dtype != torch.int32 or integral.shape[3] != 3 \
+            or bounds.dim() != 3 or bounds.shape[0] != integral.shape[0] or bounds.shape[2] != 4:
+        raise ValueError(f"expected a (B, Hq+1, Wq+1, 3) int32 integral and (B, K, 4) bounds, "
+                         f"got {tuple(integral.shape)} {integral.dtype}, {tuple(bounds.shape)}")
+    if quant < 1:
+        raise ValueError(f"quant {quant} must be at least 1")
+    if integral.is_cpu:
+        return crop_resize_area_from_integral_plain(integral, bounds, out_size, quant=quant)
+    cuda_build.require_cuda("crop_resize_area_from_integral", integral, bounds)
+    b, hq1, wq1, c = integral.shape
+    k = bounds.shape[1]
+    integral = integral.contiguous()
+    if bounds.dtype != torch.int32:
+        bounds = bounds.to(torch.int32)
+    bounds = bounds.contiguous()
+    out = integral.new_empty((b, k, out_size, out_size, c), dtype=torch.float32)
+    P, I = cuda_build.P, cuda_build.I
+    cuda_build.launch("crop_area", "tt_crop_area", [P, P, P, I, I, I, I, I, I],
+                      integral.data_ptr(), bounds.data_ptr(), out.data_ptr(), b, hq1 - 1,
+                      wq1 - 1, k, out_size, quant, device=integral.device)
+    crop_resize_area_from_integral.launches += 1
+    return out
+
+
+crop_resize_area_from_integral.launches = 0
+
+
 def crop_resize_area(frames: torch.Tensor, bounds: torch.Tensor,
                      out_size: int, *, quant: int = 1) -> torch.Tensor:
-    """Area crop-resize of K boxes per frame.
+    """Area crop-resize of K boxes per frame: :func:`crop_area_integral`
+    then :func:`crop_resize_area_from_integral` (the cascade makes the
+    integral once per frame step and cuts both stage crops from it).
 
     frames: (B, H, W, C=3) uint8; bounds: (B, K, 4) int32 half-open pixel
     bounds (x0, y0, x1, y1) clipped to the frame (ops.boxes.pad_crop_bounds).
@@ -131,28 +216,8 @@ def crop_resize_area(frames: torch.Tensor, bounds: torch.Tensor,
     Returns (B, K, O, O, C) float32 in [0, 255]; empty boxes give zeros.
     Kernel K3 on CUDA tensors, the plain version on CPU tensors.
     """
-    b, h, w, c = frames.shape
-    k = bounds.shape[1]
-    if frames.dtype != torch.uint8 or c != 3 or bounds.shape != (b, k, 4):
-        raise ValueError(f"expected (B, H, W, 3) uint8 and (B, K, 4) bounds, got "
-                         f"{tuple(frames.shape)} {frames.dtype}, {tuple(bounds.shape)}")
-    if quant < 1 or h % quant or w % quant:
-        raise ValueError(f"quant {quant} must divide the frame {h}x{w}")
-    if frames.device.type == "cpu":
-        return crop_resize_area_plain(frames, bounds, out_size, quant=quant)
-    cuda_build.require_cuda("crop_resize_area", frames, bounds)
-    frames = frames.contiguous()
-    bounds = bounds.to(torch.int32).contiguous()
-    out = torch.empty((b, k, out_size, out_size, c), dtype=torch.float32, device=frames.device)
-    P, I = cuda_build.P, cuda_build.I
-    cuda_build.launch("crop_area", "tt_crop_area", [P, P, P, I, I, I, I, I, I],
-                      frames.data_ptr(), bounds.data_ptr(), out.data_ptr(), b, h, w, k,
-                      out_size, quant, device=frames.device)
-    crop_resize_area.launches += 1
-    return out
-
-
-crop_resize_area.launches = 0
+    return crop_resize_area_from_integral(crop_area_integral(frames, quant), bounds, out_size,
+                                          quant=quant)
 
 
 # ---------------------------------------------------------------------------
@@ -206,12 +271,14 @@ def crop_resize_bilinear(frames: torch.Tensor, bounds: torch.Tensor,
     if frames.dtype != torch.uint8 or c != 3 or bounds.shape != (b, k, 4):
         raise ValueError(f"expected (B, H, W, 3) uint8 and (B, K, 4) bounds, got "
                          f"{tuple(frames.shape)} {frames.dtype}, {tuple(bounds.shape)}")
-    if frames.device.type == "cpu":
+    if frames.is_cpu:
         return crop_resize_bilinear_plain(frames, bounds, out_size)
     cuda_build.require_cuda("crop_resize_bilinear", frames, bounds)
     frames = frames.contiguous()
-    bounds = bounds.to(torch.int32).contiguous()
-    out = torch.empty((b, k, out_size, out_size, c), dtype=torch.float32, device=frames.device)
+    if bounds.dtype != torch.int32:
+        bounds = bounds.to(torch.int32)
+    bounds = bounds.contiguous()
+    out = frames.new_empty((b, k, out_size, out_size, c), dtype=torch.float32)
     P, I = cuda_build.P, cuda_build.I
     cuda_build.launch("crop_bilinear", "tt_crop_bilinear", [P, P, P, I, I, I, I, I],
                       frames.data_ptr(), bounds.data_ptr(), out.data_ptr(), b, h, w, k,

@@ -6,8 +6,9 @@ validity masks: the area pyramid and the P-Net trunk per level, ONE exact
 global top-k over every pyramid cell (boxes rebuilt from the flat cell
 index), per-scale NMS grouped by level then cross-scale NMS, 24x24 area
 crops and R-Net, 48x48 area crops and O-Net with 'min' NMS.  All four NMS
-calls go through kernel K2.  The stage crops go through kernel K3, or
-through kernel K5 on the exact crop chain with ``use_fused_crops=1``.
+calls go through kernel K2.  The stage crops go through kernel K3 (one
+integral image per frame step, both crops cut from it), or through kernel
+K5 on the exact crop chain with ``use_fused_crops=1``.
 ``refine_faces`` is the track-propagated entry: stages 2-3 only, seeded
 from a known box per frame.
 
@@ -30,7 +31,9 @@ from truely_tpu_torch.ops.crop_area_fused import (
     crop_resize_area_fused, prep_frames_for_fused_crops,
 )
 from truely_tpu_torch.ops.nms import NEG_INF, nms_masked_batch
-from truely_tpu_torch.ops.resize import crop_resize_area, resize_area
+from truely_tpu_torch.ops.resize import (
+    crop_area_integral, crop_resize_area_from_integral, resize_area,
+)
 from truely_tpu_torch.ops.topk import exact_topk_lastdim
 from truely_tpu_torch.pipeline.pyramid import pyramid_schedule
 
@@ -144,28 +147,31 @@ def crop_quant(cfg: MTCNNConfig, frames: torch.Tensor, dtype) -> int:
 class CropSource(NamedTuple):
     """What the stage crops read, prepared once per frame step."""
 
-    frames: torch.Tensor            # (B, H, W, 3) uint8
-    quant: int                      # stage-crop snap grid (1 = exact)
-    planar: Optional[torch.Tensor]  # (B, 3, H, W) uint8 for kernel K5, or None
+    frames: torch.Tensor              # (B, H, W, 3) uint8
+    quant: int                        # stage-crop snap grid (1 = exact)
+    planar: Optional[torch.Tensor]    # (B, 3, H, W) uint8 for kernel K5, or None
+    integral: Optional[torch.Tensor]  # (B, H/q+1, W/q+1, 3) int32 for kernel K3, or None
 
 
 def prep_crop_frames(frames: torch.Tensor, cfg: MTCNNConfig, dtype) -> CropSource:
-    """The crop quant and, with ``use_fused_crops == 1`` on exact crops, the
-    planar frames of kernel K5: one layout pass shared by both stage crops
-    (counterpart of ``_prep_crop_frames``)."""
+    """The crop quant and what the crop kernel reads, made once per frame
+    step and shared by both stage crops (counterpart of
+    ``_prep_crop_frames``): with ``use_fused_crops == 1`` on exact crops the
+    planar frames of kernel K5, else the integral image of kernel K3."""
     quant = crop_quant(cfg, frames, dtype)
-    planar = (prep_frames_for_fused_crops(frames)
-              if cfg.use_fused_crops == 1 and quant == 1 else None)
-    return CropSource(frames, quant, planar)
+    if cfg.use_fused_crops == 1 and quant == 1:
+        return CropSource(frames, quant, prep_frames_for_fused_crops(frames), None)
+    return CropSource(frames, quant, None, crop_area_integral(frames, quant))
 
 
 def _stage_crops(src: CropSource, boxes, out_size):
-    """q > 1: K3 on the snapped grid; planar frames: K5; else K3 at q=1."""
+    """Planar frames: K5; else K3 from the integral (on the snapped grid
+    when q > 1)."""
     h, w = src.frames.shape[1], src.frames.shape[2]
     bounds = pad_crop_bounds(boxes, w, h)
     if src.planar is not None:
         return crop_resize_area_fused(src.planar, bounds, out_size, src_hw=(h, w))
-    return crop_resize_area(src.frames, bounds, out_size, quant=src.quant)
+    return crop_resize_area_from_integral(src.integral, bounds, out_size, quant=src.quant)
 
 
 def _stages23(nets: MTCNNNets, src: CropSource, boxes, scores, valid, cfg: MTCNNConfig,
