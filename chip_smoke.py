@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (``truely_tpu_torch``) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--profile DIR] [--kernels-only]
+    python3 chip_smoke.py [--profile DIR] [--kernels-only] [--sweep]
 
 Phases, in order; any failure raises and exits non-zero:
 
@@ -18,8 +18,13 @@ Phases, in order; any failure raises and exits non-zero:
    (bf16 defaults), the propagate path (its keyframe step and its refine
    step) or neither (forms kept for comparison).  K3's prep (the integral
    image, once per frame step) is a form of its own with bound 0; its crop
-   forms cut from a prepared integral.  Then the host's cost per call of
-   K4's wrapper and of its parts (the launch floor);
+   forms cut from a prepared integral.  Edge forms of K2 (chains deeper
+   than max_rounds, tied scores, K of 1, 37 and 100, every slot invalid,
+   IoUs at the threshold float and its neighbours) and of K5 (crops
+   narrower than O, partly outside the frame, empty, at every x0 residue
+   mod 16, as wide as the frame, rows that are no multiple of 16 bytes)
+   belong to no path.  Then the host's cost per call of K4's wrapper and
+   of its parts (the launch floor);
 4. end to end, score path: ``Detector`` at the bf16 defaults with its own
    seeded weights runs ``analyze_i420`` on seeded synthetic 1080p I420
    frames, one warm-up batch and then four batches of 32 sampled frames.
@@ -48,7 +53,11 @@ the script exits non-zero and prints no result.  ``--profile DIR`` also
 traces one score-path batch and one K=4 propagate cycle (four batches) with
 ``torch.profiler`` and writes their kernel tables and Chrome traces into
 DIR.  ``--kernels-only`` runs phases 1-3 and 7 and prints no result: copied
-into another tree of the port, it times that tree's kernels the same way.
+into another tree of the port, it times that tree's kernels the same way
+(a tree whose K5 reads a planar copy of the frames gets that copy as two
+forms of K5 with bound 0, one per step).  ``--sweep`` also times K2 at
+every cluster size and K5 at every count of y-bins per CTA, after the
+device times.
 """
 
 from __future__ import annotations
@@ -130,28 +139,40 @@ def cuda_ms(fn: Callable[[], object], window_ms: float = 100.0) -> float:
     return mean_ms(min(1000, max(3, int(window_ms / max(estimate, 1e-3)))))
 
 
+def device_events(prof) -> List:
+    """The device-side entries of a torch.profiler run's key averages."""
+    return [e for e in prof.key_averages() if str(getattr(e, "device_type", "")).endswith("CUDA")]
+
+
 def profiled_device_us(prof) -> float:
     """Microseconds of every device kernel in a torch.profiler run (the
     attribute's name changed across PyTorch versions)."""
     return sum(getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
-               for e in prof.key_averages()
-               if str(getattr(e, "device_type", "")).endswith("CUDA"))
+               for e in device_events(prof))
 
 
-def device_ms(fn: Callable[[], object], calls: int = 20) -> float:
+def device_ms(fn: Callable[[], object], calls: int = 20) -> Optional[float]:
     """The device's own milliseconds per call of ``fn``: the sum of the
     kernel times torch.profiler records over ``calls`` calls after a
     warm-up, divided by the calls.  Unlike ``cuda_ms`` it leaves out what
-    issuing a call costs the host."""
+    issuing a call costs the host.  A window whose profile holds fewer
+    device events than calls (the profiler lost kernels) is taken once
+    more; if that one is short too, the count is printed and the result
+    is None, never a time that leaves kernels out."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    return profiled_device_us(prof) / 1e3 / calls
+    for _ in range(2):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        events = sum(e.count for e in device_events(prof))
+        if events >= calls:
+            return profiled_device_us(prof) / 1e3 / calls
+    log(f"device_ms: {events} device events recorded for {calls} calls, twice; reported as null")
+    return None
 
 
 def host_ms(fn: Callable[[], object], calls: int = 50) -> float:
@@ -253,6 +274,146 @@ def covered_pixels(x0, y0, x1, y1, h, w) -> int:
     return int((cover > 0).sum())
 
 
+# ---------------------------------------------------------------------------
+# Edge inputs of K2 and K5: comparison-only forms here, and the inputs on
+# which tests/test_torch_nms_edges.py and tests/test_torch_crop_fused_edges.py
+# hold the plain versions to the JAX package.  numpy, from a seed.
+
+
+def np_boxes(rng, b, k, h=STEP_H, w=STEP_W, clusters=8) -> np.ndarray:
+    """numpy counterpart of ``random_boxes``: (b, k, 4) float32 boxes of
+    12..800 px sides clustered around a few centres per frame."""
+    cid = rng.integers(0, clusters, (b, k))
+    take = lambda v: np.take_along_axis(v, cid, 1)
+    side = np.exp(take(rng.uniform(math.log(12), math.log(800), (b, clusters))))
+    side = side * rng.uniform(0.8, 1.25, (b, k))
+    cx = take(rng.uniform(0, w, (b, clusters))) + side * rng.uniform(-0.3, 0.3, (b, k))
+    cy = take(rng.uniform(0, h, (b, clusters))) + side * rng.uniform(-0.3, 0.3, (b, k))
+    return np.stack([cx - side / 2, cy - side / 2, cx + side / 2, cy + side / 2],
+                    -1).astype(np.float32)
+
+
+# The shift s of box [s, 0, 99 + s, h] against [0, 0, 99, h] at which
+# their IoU is the threshold: (100 - s) / (100 + s) for 'union',
+# (100 - s) / 100 for 'min'.
+THRESHOLD_SHIFT = {("union", 0.5): 100 / 3, ("union", 0.7): 30 / 1.7, ("min", 0.7): 30.0}
+
+
+def pair_iou(a: np.ndarray, b: np.ndarray, method: str) -> np.ndarray:
+    """float32 IoU of box pairs (n, 4), +1 convention, in the plain
+    version's order of operations."""
+    one, zero = np.float32(1), np.float32(0)
+    ix = np.maximum(zero, np.minimum(a[:, 2], b[:, 2]) - np.maximum(a[:, 0], b[:, 0]) + one)
+    iy = np.maximum(zero, np.minimum(a[:, 3], b[:, 3]) - np.maximum(a[:, 1], b[:, 1]) + one)
+    inter = ix * iy
+    area = lambda p: (p[:, 2] - p[:, 0] + one) * (p[:, 3] - p[:, 1] + one)
+    denom = np.minimum(area(a), area(b)) if method == "min" else area(a) + area(b) - inter
+    return inter / np.maximum(denom, np.float32(1e-12))
+
+
+def nms_threshold_pairs(method: str, thr: float, k: int = 256, seed: int = 8):
+    """Two frames of k/2 independent pairs (one group each): box a =
+    [0, 0, 99, h] and box b shifted right by s, with s within 1e-4 of
+    THRESHOLD_SHIFT and h random, chosen so that a quarter of the pairs'
+    float32 IoUs each are the threshold float, the float below and the
+    float above, and the rest lie near them.  Frame 0 ranks a first,
+    frame 1 b.  Returns (boxes, scores, valid, groups)."""
+    rng = np.random.default_rng(seed)
+    n, m = k // 2, 20000
+    s = (THRESHOLD_SHIFT[(method, thr)] + rng.uniform(-1e-4, 1e-4, m)).astype(np.float32)
+    h = rng.uniform(50, 150, m).astype(np.float32)
+    a = np.stack([0 * s, 0 * s, 0 * s + np.float32(99), h], -1)
+    b = np.stack([s, 0 * s, np.float32(99) + s, h], -1)
+    iou = pair_iou(a, b, method)
+    f = np.float32(thr)
+    near = (np.nextafter(f, np.float32(0)), f, np.nextafter(f, np.float32(2)))
+    picks = [np.flatnonzero(iou == x)[:n // 4] for x in near]
+    picks.append(np.flatnonzero(~np.isin(iou, near))[:n - sum(len(p) for p in picks)])
+    idx = np.concatenate(picks)
+    boxes = np.zeros((2, k, 4), np.float32)
+    boxes[:, 0::2], boxes[:, 1::2] = a[idx], b[idx]
+    scores = np.tile(np.array([1.0, 0.5], np.float32), (2, n))
+    scores[1] = 1.5 - scores[1]
+    groups = np.tile(np.arange(k, dtype=np.int32) // 2, (2, 1))
+    return boxes, scores, np.ones((2, k), bool), groups
+
+
+def nms_edge_inputs(seed: int = 5):
+    """K2's edge cases: [(label, boxes, scores, valid, groups or None,
+    dict(iou_threshold, method, max_rounds))], numpy arrays."""
+    rng = np.random.default_rng(seed)
+    cases = []
+
+    def add(label, boxes, scores, valid, groups=None, thr=0.5, method="union", max_rounds=64):
+        cases.append((label, boxes, scores, valid, groups,
+                      dict(iou_threshold=thr, method=method, max_rounds=max_rounds)))
+
+    def ranked(b, k):  # scores on a 1/64 grid (ties) and a fifth of the slots invalid
+        return (np.floor(rng.uniform(0.6, 1.0, (b, k)) * 64) / 64).astype(np.float32), \
+            rng.random((b, k)) > 0.2
+
+    # A chain 128 rounds deep: each box overlaps the next (IoU 0.57) and
+    # not the one after (0.29).
+    x = np.arange(256, dtype=np.float32)[None].repeat(2, 0) * 3.0
+    chain = np.stack([x, x * 0, x + 10.0, x * 0 + 10.0], -1)
+    desc = np.linspace(1.0, 0.1, 256, dtype=np.float32)[None].repeat(2, 0)
+    for rounds in (4, 64):
+        add(f"chain of 256 max_rounds={rounds}", chain, desc, np.ones((2, 256), bool),
+            max_rounds=rounds)
+    boxes = np_boxes(rng, 4, 256)
+    add("K=256 all scores tied", boxes, np.full((4, 256), 0.75, np.float32),
+        rng.random((4, 256)) > 0.2)
+    add("K=256 every slot invalid", boxes, ranked(4, 256)[0], np.zeros((4, 256), bool))
+    for k, method, thr, grouped in ((1, "union", 0.7, False), (37, "min", 0.7, False),
+                                    (100, "union", 0.5, True)):
+        scores, valid = ranked(4, k)
+        groups = rng.integers(0, 6, (4, k)).astype(np.int32) if grouped else None
+        add(f"K={k} {method} {thr}{' grouped' if grouped else ''}", np_boxes(rng, 4, k),
+            scores, valid, groups, thr=thr, method=method)
+    for (method, thr) in THRESHOLD_SHIFT:
+        add(f"IoU at {method} {thr} and one float either side",
+            *nms_threshold_pairs(method, thr), thr=thr, method=method)
+    return cases
+
+
+def crop_edge_inputs(b: int = 4, h: int = STEP_H, w: int = STEP_W, seed: int = 6):
+    """K5's edge cases: [(label, (h, w) of the frames, bounds (b, K, 4)
+    int32, O)], numpy; all on (h, w) frames but the last, whose rows are no
+    multiple of 16 bytes.  Only "partly outside the frame" has bounds
+    outside it (a part outside adds nothing); the cascade's bounds
+    (ops.boxes.pad_crop_bounds) never leave the frame."""
+    rng = np.random.default_rng(seed)
+
+    def rep(rows):
+        return np.tile(np.asarray(rows, np.int32)[None], (b, 1, 1))
+
+    x0 = rng.integers(0, w - 12, (b, 16))
+    y0 = rng.integers(0, h - 12, (b, 16))
+    narrow = np.stack([x0, y0, x0 + 12, y0 + 12], -1).astype(np.int32)
+    side = rng.integers(50, 400, (b, 16))
+    near = rng.integers(-200, 100, (b, 16, 2))
+    far = np.array([w, h]) - near  # by the opposite edges
+    lo = np.where((np.arange(16) % 2 == 0)[None, :, None], near, far - side[..., None])
+    outside = np.concatenate([np.concatenate([lo, lo + side[..., None]], -1),
+                              rep([[w, 0, w + 10, 10], [-20, 5, -1, 30]])], 1).astype(np.int32)
+    empty = rep([[10, 10, 10, 50], [10, 10, 50, 10], [50, 50, 40, 60], [w, 0, w, 10],
+                 [0, h, 10, h], [w - 20, h - 10, w - 120, h - 90], [5, 5, 5, 5],
+                 [100, 200, 99, 100]])
+    r = np.arange(16)
+    residues = rep(np.stack([512 + r, 300 + 0 * r, 512 + r + 17 + 13 * r, 340 + 0 * r], -1))
+    wide = rep([[0, 100, w, 900]])
+    hs, ws = 50, 70
+    x0 = rng.integers(0, ws, (2, 12))
+    y0 = rng.integers(0, hs, (2, 12))
+    odd = np.stack([x0, y0, np.minimum(x0 + rng.integers(0, 40, (2, 12)), ws),
+                    np.minimum(y0 + rng.integers(0, 30, (2, 12)), hs)], -1).astype(np.int32)
+    odd[:, 0] = [0, 0, ws, hs]
+    return [("12 px crops", (h, w), narrow, 48), ("partly outside the frame", (h, w), outside, 24),
+            ("empty boxes", (h, w), empty, 24), ("x0 at every residue mod 16", (h, w), residues, 48),
+            (f"one crop {w} px wide", (h, w), wide, 48),
+            (f"{ws} px rows (no multiple of 16 bytes)", (hs, ws), odd, 24)]
+
+
 def kernel_forms(device) -> List[Form]:
     from truely_tpu_torch.ops import crop_area_fused, nms, resize, yuv
     from truely_tpu_torch.ops.boxes import pad_crop_bounds, rerec
@@ -300,6 +461,15 @@ def kernel_forms(device) -> List[Form]:
             lambda bx=boxes, s=scores, v=valid, kw=kw: nms.nms_masked_batch_plain(bx, s, v, **kw),
             None, nbytes=b * k * (16 + 4 + 1 + 1 + (4 if grouped else 0)),
             ops=14 * int(pairs.sum())))
+    for label, bx, sc, va, gr, kw in nms_edge_inputs():
+        t = [None if a is None else torch.from_numpy(a).to(device) for a in (bx, sc, va, gr)]
+        kw = dict(kw, groups=t[3])
+        forms.append(Form(
+            "nms_masked_batch", label, (),
+            lambda t=t, kw=kw: nms.nms_masked_batch(t[0], t[1], t[2], **kw),
+            lambda t=t, kw=kw: nms.nms_masked_batch_plain(t[0], t[1], t[2], **kw),
+            None, nbytes=t[1].numel() * (16 + 4 + 1 + 1 + (4 if gr is not None else 0)),
+            ops=14 * bx.shape[0] * bx.shape[1] * (bx.shape[1] - 1) // 2))
 
     frames = torch.randint(0, 256, (b, h, w, 3), generator=g, device=device, dtype=torch.uint8)
 
@@ -307,9 +477,12 @@ def kernel_forms(device) -> List[Form]:
     # bf16 default's q=4 (the score path) and at GOLDEN_CONFIG's exact q=1;
     # the refine step's K=4 forms at q=4 (the propagate path at the default
     # crops; the propagate path driven here takes K5).  K5: the same exact
-    # crops from planar frames, the keyframe step's (K=64, K=32) and the
-    # refine step's (K=4) forms, each held to K3 at q=1 too.
-    planar = crop_area_fused.prep_frames_for_fused_crops(frames)
+    # crops, the keyframe step's (K=64, K=32) and the refine step's (K=4)
+    # forms, each held to K3 at q=1 too.  A tree whose K5 reads a planar
+    # copy of the frames (run with --kernels-only for before/after timings)
+    # also times that copy, once per step of each kind, as forms with bound 0.
+    planar_k5 = hasattr(crop_area_fused, "prep_frames_for_fused_crops")
+    k5_frames = crop_area_fused.prep_frames_for_fused_crops(frames) if planar_k5 else frames
 
     def crop_bytes(bounds, o, quant):
         x0, y0, x1, y1 = resize.snapped_bounds(bounds, quant)
@@ -329,14 +502,9 @@ def kernel_forms(device) -> List[Form]:
 
     # K3 is a prep (the integral image, once per frame step: bound 0, its
     # bytes are no work the crops must do) and a crop per stage crop, timed
-    # from a prepared integral so that the prep counts once per step.  A
-    # tree from before the prep (run with --kernels-only for before/after
-    # timings) has the one-call form.
-    split = hasattr(resize, "crop_area_integral")
+    # from a prepared integral so that the prep counts once per step.
     integrals = {}
     for quant, paths in ((4, (SCORE,)), (1, ())):
-        if not split:
-            continue
         integrals[quant] = resize.crop_area_integral(frames, quant)
         forms.append(Form(
             "crop_resize_area", f"prep q={quant}", paths,
@@ -346,29 +514,47 @@ def kernel_forms(device) -> List[Form]:
                                (4, 4, 24, ()), (4, 4, 48, ()),
                                (1, 64, 24, ()), (1, 32, 48, ())):
         bounds = crop_bounds(k)
-        if split:
-            run = lambda bd=bounds, o=o, q=quant: resize.crop_resize_area_from_integral(
-                integrals[q], bd, o, quant=q)
-            plain = lambda bd=bounds, o=o, q=quant: resize.crop_resize_area_from_integral_plain(
-                integrals[q], bd, o, quant=q)
-        else:
-            run = lambda bd=bounds, o=o, q=quant: resize.crop_resize_area(frames, bd, o, quant=q)
-            plain = lambda bd=bounds, o=o, q=quant: resize.crop_resize_area_plain(
-                frames, bd, o, quant=q)
         forms.append(Form(
-            "crop_resize_area", f"K={k} O={o} q={quant}", paths, run, plain,
+            "crop_resize_area", f"K={k} O={o} q={quant}", paths,
+            lambda bd=bounds, o=o, q=quant: resize.crop_resize_area_from_integral(
+                integrals[q], bd, o, quant=q),
+            lambda bd=bounds, o=o, q=quant: resize.crop_resize_area_from_integral_plain(
+                integrals[q], bd, o, quant=q),
             None, nbytes=crop_bytes(bounds, o, quant), ops=crop_ops(bounds, o, quant)))
+    for step in ("keyframe", "refine") if planar_k5 else ():
+        forms.append(Form(
+            "crop_resize_area_fused", f"planar copy ({step} step)", (PROPAGATE,),
+            lambda: crop_area_fused.prep_frames_for_fused_crops(frames),
+            lambda: frames.permute(0, 3, 1, 2).contiguous(), None, nbytes=0, ops=0))
     for k, o in ((64, 24), (32, 48), (4, 24), (4, 48)):
         bounds = crop_bounds(k)
         plain = lambda bd=bounds, o=o: crop_area_fused.crop_resize_area_fused_plain(
-            planar, bd, o, src_hw=(h, w))
+            k5_frames, bd, o, src_hw=(h, w))
         k3 = lambda bd=bounds, o=o: resize.crop_resize_area(frames, bd, o, quant=1)
         forms.append(Form(
             "crop_resize_area_fused", f"K={k} O={o}", (PROPAGATE,),
             lambda bd=bounds, o=o: crop_area_fused.crop_resize_area_fused(
-                planar, bd, o, src_hw=(h, w)),
+                k5_frames, bd, o, src_hw=(h, w)),
             plain, None, nbytes=crop_bytes(bounds, o, 1), ops=crop_ops(bounds, o, 1),
             same_as=k3))
+    for label, (eh, ew), bounds_np, o in crop_edge_inputs(h=h, w=w):
+        bounds = torch.from_numpy(bounds_np).to(device)
+        eb = bounds.shape[0]
+        src = frames[:eb] if (eh, ew) == (h, w) else torch.randint(
+            0, 256, (eb, eh, ew, 3), generator=g, device=device, dtype=torch.uint8)
+        if planar_k5:
+            src = crop_area_fused.prep_frames_for_fused_crops(src)
+        x0, y0, x1, y1 = bounds.to(torch.int64).unbind(-1)
+        inside = covered_pixels(x0.clamp(0, ew), y0.clamp(0, eh), x1.clamp(0, ew),
+                                y1.clamp(0, eh), eh, ew)
+        forms.append(Form(
+            "crop_resize_area_fused", f"{label} K={bounds.shape[1]} O={o}", (),
+            lambda s=src, bd=bounds, o=o, hw=(eh, ew): crop_area_fused.crop_resize_area_fused(
+                s, bd, o, src_hw=hw),
+            lambda s=src, bd=bounds, o=o, hw=(eh, ew): crop_area_fused.crop_resize_area_fused_plain(
+                s, bd, o, src_hw=hw),
+            None, nbytes=inside * 3 + bounds.numel() * 4 + bounds.shape[:2].numel() * o * o * 12,
+            ops=bounds.shape[:2].numel() * o * o * 3))
 
     # K4: the 80x80 face crop, one box per frame, clamped as the embed tail
     # clamps it; three lerps of three operations per output value.  Library
@@ -458,6 +644,10 @@ def kernel_phase(forms: List[Form]) -> List[dict]:
     return rows
 
 
+def fmt(ms: Optional[float]) -> str:
+    return "null" if ms is None else f"{ms:.4f}"
+
+
 def device_phase(forms: List[Form], rows: List[dict]) -> None:
     """Each form's and library call's device time, from torch.profiler,
     into ``rows``.  It runs last: once the profiler has traced the card, a
@@ -465,8 +655,32 @@ def device_phase(forms: List[Form], rows: List[dict]) -> None:
     for f, row in zip(forms, rows):
         row["device_ms"] = device_ms(f.run)
         row["library_device_ms"] = device_ms(f.library) if f.library else None
-        log(f"kernel {f.kernel} [{f.label}]: device_ms={row['device_ms']:.4f} library_device_ms="
-            f"{'null' if f.library is None else format(row['library_device_ms'], '.4f')}")
+        log(f"kernel {f.kernel} [{f.label}]: device_ms={fmt(row['device_ms'])} "
+            f"library_device_ms={fmt(row['library_device_ms'])}")
+
+
+def sweep(forms: List[Form]) -> None:
+    """The launch shapes the wrappers choose, against the others their
+    kernels take: K2's K=256 score forms at each cluster size (CTAs per
+    frame), K5's propagate forms at each count of y-bins per CTA.  Each
+    setting is held equal to the plain version and timed."""
+    from truely_tpu_torch.ops import crop_area_fused, nms
+
+    fixed = lambda n: (lambda *_: n)
+    for module, knob, values, kernel, first in (
+            (nms, "LARGE_K_CLUSTER", (1, 2, 4, 8), "nms_masked_batch", "K=256"),
+            (crop_area_fused, "y_bins_per_cta", map(fixed, (1, 2, 3, 4, 6, 8)),
+             "crop_resize_area_fused", "K=")):
+        chosen = getattr(module, knob)
+        for value in values:
+            setattr(module, knob, value)
+            shown = value if isinstance(value, int) else value()
+            for f in forms:
+                if f.kernel == kernel and f.label.startswith(first) and f.paths:
+                    require(torch.equal(f.run(), f.plain()), f"{kernel} at {knob}={shown} differs")
+                    log(f"sweep {knob}={shown} [{f.label}] ms={cuda_ms(f.run):.4f} "
+                        f"device_ms={fmt(device_ms(f.run))}")
+        setattr(module, knob, chosen)
 
 
 def kernel_summary(rows: List[dict]) -> dict:
@@ -627,6 +841,15 @@ def steady_regression(det):
     return det
 
 
+def allocator_counts() -> Dict[str, int]:
+    """The CUDA caching allocator's counts of device allocations and frees
+    (cudaMalloc, cudaFree) and of retries after a failed allocation, each
+    of which synchronises the device."""
+    stats = torch.cuda.memory_stats()
+    return {k: int(stats.get(k, 0)) for k in ("num_device_alloc", "num_device_free",
+                                              "num_alloc_retries")}
+
+
 def drive(det, packed: np.ndarray, n_warm: int, label: str) -> Tuple[object, Dict[str, int]]:
     """``analyze_i420`` on the first ``n_warm`` frames (warm-up), then, with
     every launch count set to 0 just before, on the rest; checks the
@@ -637,11 +860,13 @@ def drive(det, packed: np.ndarray, n_warm: int, label: str) -> Tuple[object, Dic
     counters = launch_counters()
     for fn in counters.values():
         fn.launches = 0
+    alloc0 = allocator_counts()
     t0 = time.perf_counter()
     res = det.analyze_i420(packed[n_warm:], fps=FPS)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {name: fn.launches for name, fn in counters.items()}
+    allocs = {k: v - alloc0[k] for k, v in allocator_counts().items()}
 
     n = res.total_processed
     b = det.config.frame_batch
@@ -654,7 +879,8 @@ def drive(det, packed: np.ndarray, n_warm: int, label: str) -> Tuple[object, Dic
     log(f"e2e {label}: {n} sampled frames in {wall:.4f} s = {n / wall:.2f} sampled frames/s "
         f"({n // b} batches of {b}); frames with a face: {faces}; segments re-run by the "
         f"propagate fallback: {det.fallback_segments - fallback0}; "
-        f"fake_score {res.fake_score}; host timings {json.dumps(res.timings)}")
+        f"fake_score {res.fake_score}; host timings {json.dumps(res.timings)}; caching "
+        f"allocator during the run: {json.dumps(allocs)}")
     log(json.dumps({"path": label, "launches": launches}))
     return res, launches
 
@@ -769,6 +995,8 @@ def main(argv=None) -> int:
     ap.add_argument("--kernels-only", action="store_true",
                     help="stop after the kernel phase and the launch floor (no result line); "
                          "for timing another tree's kernels beside this one's")
+    ap.add_argument("--sweep", action="store_true",
+                    help="also time K2 and K5 at every launch shape they take, after the rest")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -784,7 +1012,8 @@ def main(argv=None) -> int:
     log(f"build: {len(cuda_build.SOURCES)} kernel sources (nvcc {' '.join(cuda_build.NVCC_FLAGS[:4])}) "
         f"in {time.perf_counter() - t0:.1f} s")
     for src, report in sorted(cuda_build.build_log.items()):
-        regs = [ln.strip() for ln in report.splitlines() if "registers" in ln]
+        regs = [ln.strip().replace("ptxas info    : ", "") for ln in report.splitlines()
+                if "registers" in ln or "entry function" in ln]
         log(f"build {src}: {'; '.join(regs)}")
 
     forms = kernel_forms("cuda")
@@ -795,6 +1024,8 @@ def main(argv=None) -> int:
         xcheck_phase()
     device_phase(forms, rows)
     summary = kernel_summary(rows)
+    if args.sweep:
+        sweep(forms)
     if args.kernels_only:
         return 0
 

@@ -38,8 +38,7 @@ def edge_bounds(rng, b, k, w, h):
 
 def port_fused(frames, bounds, o):
     h, w = frames.shape[1:3]
-    planar = tfused.prep_frames_for_fused_crops(torch.from_numpy(frames))
-    return tfused.crop_resize_area_fused(planar, torch.from_numpy(bounds), o,
+    return tfused.crop_resize_area_fused(torch.from_numpy(frames), torch.from_numpy(bounds), o,
                                          src_hw=(h, w)).numpy()
 
 
@@ -90,7 +89,7 @@ def test_fused_wrapper_plain_on_cpu_raises_elsewhere():
     """On a CPU tensor the wrapper takes the plain version (no launch is
     counted); on any other device it must reach the kernel or raise."""
     rng = np.random.default_rng(2)
-    frames = rng.integers(0, 256, (1, 3, 16, 20), dtype=np.uint8)
+    frames = rng.integers(0, 256, (1, 16, 20, 3), dtype=np.uint8)
     bounds = np.array([[[2, 3, 15, 14]]], np.int32)
     before = tfused.crop_resize_area_fused.launches
     got = tfused.crop_resize_area_fused(torch.from_numpy(frames), torch.from_numpy(bounds), 4,
@@ -101,15 +100,18 @@ def test_fused_wrapper_plain_on_cpu_raises_elsewhere():
     assert tfused.crop_resize_area_fused.launches == before
     meta = {"device": "meta"}
     with pytest.raises(ValueError, match="CUDA"):
-        tfused.crop_resize_area_fused(torch.zeros((1, 3, 8, 8), dtype=torch.uint8, **meta),
+        tfused.crop_resize_area_fused(torch.zeros((1, 8, 8, 3), dtype=torch.uint8, **meta),
                                       torch.zeros((1, 1, 4), dtype=torch.int32, **meta), 4,
                                       src_hw=(8, 8))
 
 
 def test_fused_rejects_bad_inputs():
-    planar = torch.zeros((1, 3, 8, 8), dtype=torch.uint8)
+    frames = torch.zeros((1, 8, 8, 3), dtype=torch.uint8)
+    bounds = torch.zeros((1, 1, 4), dtype=torch.int32)
     with pytest.raises(ValueError, match="src_hw"):
-        tfused.crop_resize_area_fused(planar, torch.zeros((1, 1, 4), dtype=torch.int32), 4,
-                                      src_hw=(8, 9))
-    with pytest.raises(ValueError):
-        tfused.prep_frames_for_fused_crops(torch.zeros((1, 8, 8, 3), dtype=torch.float32))
+        tfused.crop_resize_area_fused(frames, bounds, 4, src_hw=(8, 9))
+    with pytest.raises(ValueError):  # float frames
+        tfused.crop_resize_area_fused(frames.float(), bounds, 4, src_hw=(8, 8))
+    with pytest.raises(ValueError):  # planar (B, C, H, W) frames are no longer taken
+        tfused.crop_resize_area_fused(torch.zeros((1, 3, 8, 8), dtype=torch.uint8), bounds, 4,
+                                      src_hw=(3, 8))

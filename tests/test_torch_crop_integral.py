@@ -116,7 +116,7 @@ def test_crop_resize_area_is_the_composition(q):
 @pytest.mark.parametrize("fused,dtype,quant,kind", [
     (0, torch.bfloat16, 4, "integral"),   # the score path's q=4 crops
     (0, torch.float32, 1, "integral"),    # GOLDEN_CONFIG's exact crops
-    (1, torch.float32, 1, "planar"),      # the exact crop chain through K5
+    (1, torch.float32, 1, "planar"),      # the exact crop chain through K5 (no planar copy now)
     (1, torch.bfloat16, 4, "integral"),   # use_fused_crops=1 does not apply at q=4
 ])
 def test_prep_crop_frames_builds_what_its_kernel_reads(fused, dtype, quant, kind):
@@ -125,10 +125,9 @@ def test_prep_crop_frames_builds_what_its_kernel_reads(fused, dtype, quant, kind
     src = tmtcnn.prep_crop_frames(f, MTCNNConfig(use_fused_crops=fused), dtype)
     assert src.quant == quant
     if kind == "integral":
-        assert src.planar is None
         assert torch.equal(src.integral, tresize.crop_area_integral(f, quant))
-    else:
-        assert src.integral is None and src.planar is not None
+    else:  # K5 reads the frames themselves
+        assert src.integral is None and src.frames is f
     boxes = torch.from_numpy(np.asarray(
         [[[5.0, 6.0, 40.0, 50.0], [0.0, 0.0, 88.0, 64.0]]] * 2, np.float32))
     got = tmtcnn._stage_crops(src, boxes, 24)

@@ -11,16 +11,22 @@ overlaps.  ``groups`` confines suppression to same-group pairs (the
 per-scale P-Net NMS on the mixed candidate set).
 
 Kernel: ``csrc/nms.cu`` replaces the Pallas kernel
-``truely_tpu/ops/nms_pallas.py:nms_masked_batch_pallas``, one CTA per frame
-with the K x K overlap bitmask in shared memory; bound by operations (K^2
-IoU tests per frame), tiny at K <= 256.
+``truely_tpu/ops/nms_pallas.py:nms_masked_batch_pallas``: a cluster of
+CTAs per frame builds the K x K overlap bitmask (one ballot word per warp
+step), the CTAs share it through distributed shared memory, and each runs
+the rounds on it; bound by operations (K^2 IoU tests per frame), tiny at
+K <= 256.  The kernel compares the IoU with the threshold without a
+division (:func:`iou_cut`), exactly as the plain version's division and
+compare decide it, so the wrapper takes thresholds in [0, FLT_MAX).
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+import functools
+from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 from truely_tpu_torch.ops import cuda_build
@@ -28,6 +34,32 @@ from truely_tpu_torch.ops.boxes import iou_matrix
 
 NEG_INF = -1e30
 MAX_K = 256  # the kernel's shared-memory capacity
+# CTAs per frame (a thread-block cluster) above SMALL_K candidates; one CTA
+# sized to K at and below it.
+LARGE_K_CLUSTER = 2
+SMALL_K = 64
+
+
+@functools.lru_cache(maxsize=64)
+def iou_cut(iou_threshold: float) -> Tuple[float, bool]:
+    """The division-free form of ``RN32(inter / d) > f32(iou_threshold)``
+    for finite float32 ``inter`` and ``d > 0``: ``inter > d * m`` in float64,
+    or ``inter == d * m`` and ``tie_up``.  ``m`` is the midpoint of the
+    threshold and the next float32 above it, where round-to-nearest turns
+    from the threshold to its successor; the product of d's 24-bit and m's
+    25-bit significands is exact in a double.  At ``inter / d == m`` exactly
+    round-to-nearest-even goes up iff the successor's significand is even
+    (``tie_up``).  Returns (m, tie_up); raises for a threshold outside
+    [0, FLT_MAX), where the form does not hold."""
+    thr = np.float32(iou_threshold)
+    if not (np.isfinite(thr) and 0.0 <= thr < np.finfo(np.float32).max):
+        raise ValueError(f"iou_threshold must lie in [0, FLT_MAX), got {iou_threshold!r}")
+    up = np.nextafter(thr, np.float32(np.inf))
+    return (float(thr) + float(up)) / 2.0, int(up.view(np.uint32)) % 2 == 0
+
+
+def cluster_size(k: int) -> int:
+    return LARGE_K_CLUSTER if k > SMALL_K else 1
 
 
 def _overlap(boxes, scores, valid, iou_threshold, method, groups):
@@ -79,6 +111,7 @@ def nms_masked_batch(boxes, scores, valid, *, iou_threshold: float,
     CPU tensors.  Returns the (B, K) bool keep mask in the original order."""
     if method not in ("union", "min"):
         raise ValueError(f"method must be 'union' or 'min', got {method!r}")
+    cut, tie_up = iou_cut(iou_threshold)
     if boxes.device.type == "cpu":
         return nms_masked_batch_plain(
             boxes, scores, valid, iou_threshold=iou_threshold, method=method,
@@ -91,6 +124,8 @@ def nms_masked_batch(boxes, scores, valid, *, iou_threshold: float,
         raise ValueError(f"the NMS kernel takes 1..{MAX_K} candidates, got {k}")
     cuda_build.require_cuda("nms_masked_batch", boxes, scores, valid, groups)
     boxes = boxes.to(torch.float32).contiguous()
+    if boxes.data_ptr() % 16:  # the kernel reads a box as one float4
+        boxes = boxes.clone()
     scores = scores.to(torch.float32).contiguous()
     valid = valid.to(torch.bool).contiguous()
     if groups is not None:
@@ -99,11 +134,11 @@ def nms_masked_batch(boxes, scores, valid, *, iou_threshold: float,
         groups = groups.to(torch.int32).contiguous()
     keep = torch.empty((b, k), dtype=torch.bool, device=boxes.device)
     P, I = cuda_build.P, cuda_build.I
-    cuda_build.launch("nms", "tt_nms", [P, P, P, P, P, I, I, ctypes.c_float, I, I],
+    cuda_build.launch("nms", "tt_nms", [P, P, P, P, P, I, I, ctypes.c_double, I, I, I, I],
                       boxes.data_ptr(), scores.data_ptr(), valid.data_ptr(),
                       groups.data_ptr() if groups is not None else None, keep.data_ptr(),
-                      b, k, float(iou_threshold), int(method == "min"), int(max_rounds),
-                      device=boxes.device)
+                      b, k, cut, int(tie_up), int(method == "min"), int(max_rounds),
+                      cluster_size(k), device=boxes.device)
     nms_masked_batch.launches += 1
     return keep
 

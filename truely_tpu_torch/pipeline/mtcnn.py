@@ -27,9 +27,7 @@ import torch.nn as nn
 
 from truely_tpu_torch.config import MTCNNConfig
 from truely_tpu_torch.ops.boxes import bbreg, pad_crop_bounds, rerec
-from truely_tpu_torch.ops.crop_area_fused import (
-    crop_resize_area_fused, prep_frames_for_fused_crops,
-)
+from truely_tpu_torch.ops.crop_area_fused import crop_resize_area_fused
 from truely_tpu_torch.ops.nms import NEG_INF, nms_masked_batch
 from truely_tpu_torch.ops.resize import (
     crop_area_integral, crop_resize_area_from_integral, resize_area,
@@ -145,32 +143,34 @@ def crop_quant(cfg: MTCNNConfig, frames: torch.Tensor, dtype) -> int:
 
 
 class CropSource(NamedTuple):
-    """What the stage crops read, prepared once per frame step."""
+    """What the stage crops read, prepared once per frame step.  Without an
+    integral kernel K5 cuts the crops from ``frames`` themselves (the
+    ``planar`` copy of the frames that K5 once read is gone)."""
 
     frames: torch.Tensor              # (B, H, W, 3) uint8
     quant: int                        # stage-crop snap grid (1 = exact)
-    planar: Optional[torch.Tensor]    # (B, 3, H, W) uint8 for kernel K5, or None
     integral: Optional[torch.Tensor]  # (B, H/q+1, W/q+1, 3) int32 for kernel K3, or None
 
 
 def prep_crop_frames(frames: torch.Tensor, cfg: MTCNNConfig, dtype) -> CropSource:
     """The crop quant and what the crop kernel reads, made once per frame
     step and shared by both stage crops (counterpart of
-    ``_prep_crop_frames``): with ``use_fused_crops == 1`` on exact crops the
-    planar frames of kernel K5, else the integral image of kernel K3."""
+    ``_prep_crop_frames``): with ``use_fused_crops == 1`` on exact crops
+    nothing (kernel K5 reads the frames), else the integral image of kernel
+    K3."""
     quant = crop_quant(cfg, frames, dtype)
     if cfg.use_fused_crops == 1 and quant == 1:
-        return CropSource(frames, quant, prep_frames_for_fused_crops(frames), None)
-    return CropSource(frames, quant, None, crop_area_integral(frames, quant))
+        return CropSource(frames, quant, None)
+    return CropSource(frames, quant, crop_area_integral(frames, quant))
 
 
 def _stage_crops(src: CropSource, boxes, out_size):
-    """Planar frames: K5; else K3 from the integral (on the snapped grid
+    """K5 from the frames; else K3 from the integral (on the snapped grid
     when q > 1)."""
     h, w = src.frames.shape[1], src.frames.shape[2]
     bounds = pad_crop_bounds(boxes, w, h)
-    if src.planar is not None:
-        return crop_resize_area_fused(src.planar, bounds, out_size, src_hw=(h, w))
+    if src.integral is None:
+        return crop_resize_area_fused(src.frames, bounds, out_size, src_hw=(h, w))
     return crop_resize_area_from_integral(src.integral, bounds, out_size, quant=src.quant)
 
 
