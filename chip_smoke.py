@@ -14,9 +14,12 @@ Phases, in order; any failure raises and exits non-zero:
    at q=1), and timed beside the plain version, a PyTorch library call
    where one computes the same function, and its bound: ``ms`` is the
    CUDA-event time of back-to-back calls (the issue rate), ``host_ms``
-   the host's cost of issuing a call (``device_ms`` comes in phase 7).  Each call form belongs to a path: the score path
-   (bf16 defaults), the propagate path (its keyframe step and its refine
-   step) or neither (forms kept for comparison).  K3's prep (the integral
+   the host's cost of issuing a call (``device_ms`` comes in phase 9).
+   Each call form belongs to the paths that make it: score (bf16
+   defaults), propagate (its keyframe step and its refine step),
+   multiface (4 tracks: K4 at K=4, the refine step's K2 and K5 at K=16)
+   and stream (the scheduler's full and refine steps: K3 at K=4 and K=16,
+   q=4), or to none (forms kept for comparison).  K3's prep (the integral
    image, once per frame step) is a form of its own with bound 0; its crop
    forms cut from a prepared integral.  Edge forms of K2 (chains deeper
    than max_rounds, tied scores, K of 1, 37 and 100, every slot invalid,
@@ -39,20 +42,38 @@ Phases, in order; any failure raises and exits non-zero:
    (the seeded R-Net/O-Net box regressions are scaled down for these runs,
    see PROP_REGRESSION_SCALE).  Each run prints how many segments the
    propagate fallback re-ran through the full step;
-6. float32 cross-checks of card against CPU: GOLDEN_CONFIG (frame_batch 16,
-   TF32 off) over 16 synthetic 640x360 frames, and the propagate path
-   (``detect_interval=4``, ``use_fused_crops=1``) over 16 stable ones;
-7. device times: ``device_ms`` of every kernel form and library call, the
-   kernels' own time from torch.profiler over 20 calls.  It runs last:
-   once the profiler has traced the card, every launch costs the host more
-   for the rest of the process, which would slow the phases above.
+6. end to end, multiface path: ``analyze_i420_tracks`` with 4 tracks, at
+   the bf16 defaults (one warm-up batch, four timed; K1-K4 and not K5),
+   then at K=4 and "auto" under the propagate path's conditions (one
+   warm-up cycle, eight timed batches; K1, K2, K4, K5 and not K3; the
+   ladder must climb).  Each prints sampled frames/s, active tracks and
+   per-track scores, and the stage times of one batch (cascade, tail,
+   track fold);
+7. end to end, stream path: ``StreamScheduler`` with 8 streams x 4 frames
+   a step at 1080p, I420, each stream its own stable content, single-face
+   at the defaults, at K=4 and at "auto", and multi-face at K=4 (the
+   propagate path's thresholds and regression heads on the bf16 crop
+   chain, q=4): K1-K4 and not K5 in each, refine steps in the last three,
+   the "auto" rung must climb, and the events must be one per pushed
+   sampled frame.  Each prints sampled frames/s over all streams, steps,
+   keyframe steps and padded rows;
+8. float32 cross-checks of card against CPU: GOLDEN_CONFIG (frame_batch 16,
+   TF32 off) over 16 synthetic 640x360 frames, the propagate path
+   (``detect_interval=4``, ``use_fused_crops=1``) and the multi-face path
+   at K=4 over 16 stable ones, and a 2-stream scheduler at K=4;
+9. device times: ``device_ms`` of every kernel form and library call, the
+   kernels' own time from torch.profiler over 20 calls, then one batch's
+   track fold under torch.profiler (its ATen calls, device kernels, device
+   and wall time).  It runs last: once the profiler has traced the card,
+   every launch costs the host more for the rest of the process, which
+   would slow the phases above.
 
 The line before the last is one JSON object with every kernel's numbers;
 the last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device
 the script exits non-zero and prints no result.  ``--profile DIR`` also
 traces one score-path batch and one K=4 propagate cycle (four batches) with
 ``torch.profiler`` and writes their kernel tables and Chrome traces into
-DIR.  ``--kernels-only`` runs phases 1-3 and 7 and prints no result: copied
+DIR.  ``--kernels-only`` runs phases 1-3 and 9 and prints no result: copied
 into another tree of the port, it times that tree's kernels the same way
 (a tree whose K5 reads a planar copy of the frames gets that copy as two
 forms of K5 with bound 0, one per step).  ``--sweep`` also times K2 at
@@ -84,6 +105,12 @@ PEAKS = "H100 SXM peaks: 3.35 TB/s HBM, 67 TFLOP/s float32 (700 W)"
 STEP_B, STEP_H, STEP_W = 32, 1080, 1920
 E2E_BATCHES = 4
 PROP_BATCHES = 16  # four keyframe cycles at K=4
+MAX_TRACKS = 4
+MF_BATCHES = 4       # the multi-face path's timed batches at K=1
+MF_PROP_BATCHES = 8  # and at K=4 and "auto": two keyframe cycles at K=4
+# The stream path: 8 streams x 4 frames a step (32 rows), 40 sampled frames
+# a stream (fewer for some, see stream_content): 10 steps.
+STREAMS, STREAM_FRAMES, STREAM_LEN = 8, 4, 40
 FPS = 7  # sample_interval(7) == 1: every frame is a sampled frame
 # The seeded random nets are no face detectors: at the default thresholds
 # they pass nothing on synthetic content.  The float32 cross-check lowers
@@ -98,7 +125,11 @@ PROP_THRESHOLDS = (0.0, 0.0, 0.0)
 # and the propagate path would only run its fallback.  Its runs scale both
 # regression heads by this factor: refined boxes stay near their candidates.
 PROP_REGRESSION_SCALE = 0.1
-SCORE, PROPAGATE = "score", "propagate"
+SCORE, PROPAGATE, MULTIFACE, STREAM = "score", "propagate", "multiface", "stream"
+PATHS = (SCORE, PROPAGATE, MULTIFACE, STREAM)
+# Candidate clusters per frame of the refine steps' call forms: the 4
+# candidates around one seed, the 16 around 4 track seeds.
+REFINE_CLUSTERS = {4: 1, 16: 4}
 
 
 def log(msg: str) -> None:
@@ -235,7 +266,7 @@ class Form(NamedTuple):
 
     kernel: str
     label: str
-    paths: Tuple[str, ...]          # SCORE and/or PROPAGATE; () = comparison only
+    paths: Tuple[str, ...]          # of PATHS; () = comparison only
     run: Callable[[], torch.Tensor]
     plain: Callable[[], torch.Tensor]
     library: Optional[Callable[[], object]]
@@ -419,6 +450,9 @@ def kernel_forms(device) -> List[Form]:
     from truely_tpu_torch.ops.boxes import pad_crop_bounds, rerec
 
     g = torch.Generator(device=device).manual_seed(1234)
+    # The multi-face forms draw from a generator of their own, so that the
+    # earlier forms keep the inputs they had before these were added.
+    g_multi = torch.Generator(device=device).manual_seed(4321)
     b, h, w = STEP_B, STEP_H, STEP_W
     forms: List[Form] = []
 
@@ -427,24 +461,27 @@ def kernel_forms(device) -> List[Form]:
     packed = torch.randint(0, 256, (b, h * 3 // 2, w), generator=g, device=device,
                            dtype=torch.uint8)
     forms.append(Form(
-        "i420_to_bgr", f"({b},{h * 3 // 2},{w}) u8", (SCORE, PROPAGATE),
+        "i420_to_bgr", f"({b},{h * 3 // 2},{w}) u8", PATHS,
         lambda: yuv.i420_to_bgr(packed), lambda: yuv.i420_to_bgr_plain(packed), None,
         nbytes=packed.numel() + b * h * w * 3, ops=b * h * w * 3 * 4))
 
-    # K2: the cascade's four NMS calls (the score path and the propagate
-    # path's keyframe step), and the refine step's two over the 4
-    # candidates around one face, on clustered candidates with tied scores
-    # (multiples of 1/64) and a fifth of the slots invalid.
-    both, prop = (SCORE, PROPAGATE), (PROPAGATE,)
+    # K2: the cascade's four NMS calls (every path's full or keyframe
+    # step), the single-face refine step's two over the 4 candidates around
+    # one face, and the multi-face refine step's two over the 16 around 4
+    # faces, on clustered candidates with tied scores (multiples of 1/64)
+    # and a fifth of the slots invalid.
+    refine1, refine4 = (PROPAGATE, STREAM), (MULTIFACE, STREAM)
     for k, thr, method, grouped, paths in (
-            (256, 0.5, "union", True, both), (256, 0.7, "union", False, both),
-            (64, 0.7, "union", False, both), (32, 0.7, "min", False, both),
-            (4, 0.7, "union", False, prop), (4, 0.7, "min", False, prop)):
-        boxes = random_boxes(g, b, k, h, w, device, clusters=1 if k == 4 else 8)
+            (256, 0.5, "union", True, PATHS), (256, 0.7, "union", False, PATHS),
+            (64, 0.7, "union", False, PATHS), (32, 0.7, "min", False, PATHS),
+            (4, 0.7, "union", False, refine1), (4, 0.7, "min", False, refine1),
+            (16, 0.7, "union", False, refine4), (16, 0.7, "min", False, refine4)):
+        gk = g_multi if k == 16 else g
+        boxes = random_boxes(gk, b, k, h, w, device, clusters=REFINE_CLUSTERS.get(k, 8))
         scores = torch.floor(torch.empty((b, k), device=device).uniform_(
-            0.6, 1.0, generator=g) * 64) / 64
-        valid = torch.rand((b, k), generator=g, device=device) > 0.2
-        groups = (torch.randint(0, 12, (b, k), generator=g, device=device, dtype=torch.int32)
+            0.6, 1.0, generator=gk) * 64) / 64
+        valid = torch.rand((b, k), generator=gk, device=device) > 0.2
+        groups = (torch.randint(0, 12, (b, k), generator=gk, device=device, dtype=torch.int32)
                   if grouped else None)
         kw = dict(iou_threshold=thr, method=method, max_rounds=64, groups=groups)
         idx = torch.arange(k, device=device)
@@ -474,11 +511,12 @@ def kernel_forms(device) -> List[Form]:
     frames = torch.randint(0, 256, (b, h, w, 3), generator=g, device=device, dtype=torch.uint8)
 
     # K3: stage crops, R-Net (K=64, 24x24) and O-Net (K=32, 48x48), at the
-    # bf16 default's q=4 (the score path) and at GOLDEN_CONFIG's exact q=1;
-    # the refine step's K=4 forms at q=4 (the propagate path at the default
-    # crops; the propagate path driven here takes K5).  K5: the same exact
-    # crops, the keyframe step's (K=64, K=32) and the refine step's (K=4)
-    # forms, each held to K3 at q=1 too.  A tree whose K5 reads a planar
+    # bf16 default's q=4 (the score path, the multi-face K=1 run and every
+    # stream run's full steps) and at GOLDEN_CONFIG's exact q=1; the refine
+    # steps' K=4 (single face) and K=16 (4 tracks) forms at q=4 (the stream
+    # runs at K=4; the propagate runs driven here take K5).  K5: the same
+    # exact crops, the keyframe step's (K=64, K=32) and the refine steps'
+    # (K=4, K=16) forms, each held to K3 at q=1 too.  A tree whose K5 reads a planar
     # copy of the frames (run with --kernels-only for before/after timings)
     # also times that copy, once per step of each kind, as forms with bound 0.
     planar_k5 = hasattr(crop_area_fused, "prep_frames_for_fused_crops")
@@ -497,21 +535,24 @@ def kernel_forms(device) -> List[Form]:
         return int(summed.sum()) * 3 + b * bounds.shape[1] * o * o * 3
 
     def crop_bounds(k):
-        boxes = random_boxes(g, b, k, h, w, device, clusters=1 if k == 4 else 8)
+        boxes = random_boxes(g_multi if k == 16 else g, b, k, h, w, device,
+                             clusters=REFINE_CLUSTERS.get(k, 8))
         return pad_crop_bounds(rerec(boxes), w, h)
 
     # K3 is a prep (the integral image, once per frame step: bound 0, its
     # bytes are no work the crops must do) and a crop per stage crop, timed
     # from a prepared integral so that the prep counts once per step.
     integrals = {}
-    for quant, paths in ((4, (SCORE,)), (1, ())):
+    for quant, paths in ((4, (SCORE, MULTIFACE, STREAM)), (1, ())):
         integrals[quant] = resize.crop_area_integral(frames, quant)
         forms.append(Form(
             "crop_resize_area", f"prep q={quant}", paths,
             lambda q=quant: resize.crop_area_integral(frames, q),
             lambda q=quant: resize.crop_area_integral_plain(frames, q), None, nbytes=0, ops=0))
-    for quant, k, o, paths in ((4, 64, 24, (SCORE,)), (4, 32, 48, (SCORE,)),
-                               (4, 4, 24, ()), (4, 4, 48, ()),
+    full_q4 = (SCORE, MULTIFACE, STREAM)
+    for quant, k, o, paths in ((4, 64, 24, full_q4), (4, 32, 48, full_q4),
+                               (4, 4, 24, (STREAM,)), (4, 4, 48, (STREAM,)),
+                               (4, 16, 24, (STREAM,)), (4, 16, 48, (STREAM,)),
                                (1, 64, 24, ()), (1, 32, 48, ())):
         bounds = crop_bounds(k)
         forms.append(Form(
@@ -526,13 +567,15 @@ def kernel_forms(device) -> List[Form]:
             "crop_resize_area_fused", f"planar copy ({step} step)", (PROPAGATE,),
             lambda: crop_area_fused.prep_frames_for_fused_crops(frames),
             lambda: frames.permute(0, 3, 1, 2).contiguous(), None, nbytes=0, ops=0))
-    for k, o in ((64, 24), (32, 48), (4, 24), (4, 48)):
+    for k, o, paths in ((64, 24, (PROPAGATE, MULTIFACE)), (32, 48, (PROPAGATE, MULTIFACE)),
+                        (4, 24, (PROPAGATE,)), (4, 48, (PROPAGATE,)),
+                        (16, 24, (MULTIFACE,)), (16, 48, (MULTIFACE,))):
         bounds = crop_bounds(k)
         plain = lambda bd=bounds, o=o: crop_area_fused.crop_resize_area_fused_plain(
             k5_frames, bd, o, src_hw=(h, w))
         k3 = lambda bd=bounds, o=o: resize.crop_resize_area(frames, bd, o, quant=1)
         forms.append(Form(
-            "crop_resize_area_fused", f"K={k} O={o}", (PROPAGATE,),
+            "crop_resize_area_fused", f"K={k} O={o}", paths,
             lambda bd=bounds, o=o: crop_area_fused.crop_resize_area_fused(
                 k5_frames, bd, o, src_hw=(h, w)),
             plain, None, nbytes=crop_bytes(bounds, o, 1), ops=crop_ops(bounds, o, 1),
@@ -556,38 +599,42 @@ def kernel_forms(device) -> List[Form]:
             None, nbytes=inside * 3 + bounds.numel() * 4 + bounds.shape[:2].numel() * o * o * 12,
             ops=bounds.shape[:2].numel() * o * o * 3))
 
-    # K4: the 80x80 face crop, one box per frame, clamped as the embed tail
-    # clamps it; three lerps of three operations per output value.  Library
-    # yardstick: grid_sample over float frames at the same sample positions
-    # (bilinear, border padding).
+    # K4: the 80x80 face crop, one box per frame (single face) or four
+    # (multi-face, T = 4), clamped as the embed tail clamps them; three
+    # lerps of three operations per output value.  Library yardstick:
+    # grid_sample over float frames at the same sample positions (bilinear,
+    # border padding), a frame's K crops stacked into one output.
     o = 80
-    bi = random_boxes(g, b, 1, h, w, device, clusters=1).to(torch.int32)
-    bounds = torch.stack([bi[..., 0].clamp_min(0), bi[..., 1].clamp_min(0),
-                          bi[..., 2].clamp_max(w), bi[..., 3].clamp_max(h)], -1)
     i = torch.arange(o, device=device, dtype=torch.float32)
+    frames_f = frames.permute(0, 3, 1, 2).float()
 
-    def positions(lo, hi):  # (b, o) sample coordinates in the frame
-        n = (hi - lo).float()[:, None]
+    def positions(lo, hi):  # (b, k, o) sample coordinates in the frame
+        n = (hi - lo).float()[..., None]
         s = torch.minimum(((i + 0.5) * n / o - 0.5).clamp_min(0), (n - 1).clamp_min(0))
-        return lo.float()[:, None] + s
+        return lo.float()[..., None] + s
 
-    def distinct(a, size):  # per frame, the source rows (or columns) read
-        idx = torch.cat([a.floor(), a.floor() + 1], 1).clamp(0, size - 1)
+    def distinct(a, size):  # per crop, the source rows (or columns) read
+        idx = torch.cat([a.floor(), a.floor() + 1], -1).clamp(0, size - 1).flatten(0, 1)
         return [torch.unique(r).numel() for r in idx]
 
-    ax = positions(bounds[:, 0, 0], bounds[:, 0, 2])
-    ay = positions(bounds[:, 0, 1], bounds[:, 0, 3])
-    pixels_read = sum(r * c for r, c in zip(distinct(ay, h), distinct(ax, w)))
-    grid = torch.stack([((ax + 0.5) * 2 / w - 1)[:, None, :].expand(b, o, o),
-                        ((ay + 0.5) * 2 / h - 1)[:, :, None].expand(b, o, o)], -1)
-    frames_f = frames.permute(0, 3, 1, 2).float()
-    forms.append(Form(
-        "crop_resize_bilinear", f"K=1 O={o}", (SCORE, PROPAGATE),
-        lambda: resize.crop_resize_bilinear(frames, bounds, o),
-        lambda: resize.crop_resize_bilinear_plain(frames, bounds, o),
-        lambda: torch.nn.functional.grid_sample(frames_f, grid, mode="bilinear",
-                                                padding_mode="border", align_corners=False),
-        nbytes=pixels_read * 3 + bounds.numel() * 4 + b * o * o * 3 * 4, ops=b * o * o * 3 * 9))
+    for k, paths in ((1, (SCORE, PROPAGATE, STREAM)), (4, (MULTIFACE, STREAM))):
+        bi = random_boxes(g_multi if k > 1 else g, b, k, h, w, device, clusters=k).to(torch.int32)
+        bounds = torch.stack([bi[..., 0].clamp_min(0), bi[..., 1].clamp_min(0),
+                              bi[..., 2].clamp_max(w), bi[..., 3].clamp_max(h)], -1)
+        ax = positions(bounds[..., 0], bounds[..., 2])
+        ay = positions(bounds[..., 1], bounds[..., 3])
+        pixels_read = sum(r * c for r, c in zip(distinct(ay, h), distinct(ax, w)))
+        grid = torch.stack([((ax + 0.5) * 2 / w - 1)[:, :, None, :].expand(b, k, o, o),
+                            ((ay + 0.5) * 2 / h - 1)[:, :, :, None].expand(b, k, o, o)],
+                           -1).reshape(b, k * o, o, 2)
+        forms.append(Form(
+            "crop_resize_bilinear", f"K={k} O={o}", paths,
+            lambda bd=bounds: resize.crop_resize_bilinear(frames, bd, o),
+            lambda bd=bounds: resize.crop_resize_bilinear_plain(frames, bd, o),
+            lambda gr=grid: torch.nn.functional.grid_sample(
+                frames_f, gr, mode="bilinear", padding_mode="border", align_corners=False),
+            nbytes=pixels_read * 3 + bounds.numel() * 4 + b * k * o * o * 3 * 4,
+            ops=b * k * o * o * 3 * 9))
     return forms
 
 
@@ -684,14 +731,15 @@ def sweep(forms: List[Form]) -> None:
 
 
 def kernel_summary(rows: List[dict]) -> dict:
-    """Kernel name -> summary, with per-path times (the sum over the forms
-    of each path, one step's calls: for the propagate path one keyframe
-    step's and one refine step's)."""
+    """Kernel name -> summary, with per-path times: the sum over the forms
+    a path makes, one call of each (for the propagate path one keyframe
+    step's and one refine step's; the multiface and stream paths add the
+    forms of each of their runs' steps)."""
     summary = {}
     for name in SOURCES:
         mine = [r for r in rows if r["kernel"] == name]
         per_path = {}
-        for path in (SCORE, PROPAGATE):
+        for path in PATHS:
             on = [r for r in mine if path in r["paths"]]
             if not on:
                 continue
@@ -752,6 +800,33 @@ def launch_counters():
             K3_PREP: resize.crop_area_integral,
             "crop_resize_bilinear": resize.crop_resize_bilinear,
             "crop_resize_area_fused": crop_area_fused.crop_resize_area_fused}
+
+
+def reset_launches() -> dict:
+    """Every kernel wrapper's launch count set to 0; returns the wrappers."""
+    counters = launch_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    return counters
+
+
+def read_launches(counters: dict) -> Dict[str, int]:
+    return {name: fn.launches for name, fn in counters.items()}
+
+
+def require_launched(launches: Dict[str, int], label: str, k5: bool) -> None:
+    """K1, K2, K4 and either K5 (``k5``) or both K3 kernels launched, and
+    the other stage-crop kernel not."""
+    crops = ("crop_resize_area_fused",) if k5 else K3_PARTS
+    unused = K3_PARTS if k5 else ("crop_resize_area_fused",)
+    silent = [k for k, v in launches.items() if v <= 0 and k not in unused]
+    require(not silent, f"{label}: kernels not launched: {silent}")
+    require(all(launches[k] == 0 for k in unused),
+            f"{label}: {'K3' if k5 else 'K5'} launched where {crops} should run")
+
+
+def add_launches(total: Dict[str, int], launches: Dict[str, int]) -> Dict[str, int]:
+    return {k: total.get(k, 0) + v for k, v in launches.items()}
 
 
 def sync_ms(fn) -> Tuple[object, float]:
@@ -857,15 +932,13 @@ def drive(det, packed: np.ndarray, n_warm: int, label: str) -> Tuple[object, Dic
     det.analyze_i420(packed[:n_warm], fps=FPS)
     torch.cuda.synchronize()
     fallback0 = det.fallback_segments
-    counters = launch_counters()
-    for fn in counters.values():
-        fn.launches = 0
+    counters = reset_launches()
     alloc0 = allocator_counts()
     t0 = time.perf_counter()
     res = det.analyze_i420(packed[n_warm:], fps=FPS)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {name: fn.launches for name, fn in counters.items()}
+    launches = read_launches(counters)
     allocs = {k: v - alloc0[k] for k, v in allocator_counts().items()}
 
     n = res.total_processed
@@ -899,9 +972,7 @@ def e2e_phase(profile_dir: Optional[str]) -> Dict[str, int]:
     log(f"e2e: Detector({cfg.compute_dtype}, frame_batch {b}) and {packed.shape[0]} frames "
         f"of {STEP_W}x{STEP_H} I420 ready in {time.perf_counter() - t0:.1f} s")
     _, launches = drive(det, packed, b, SCORE)
-    missing = [k for k, v in launches.items() if v <= 0 and MAIN_PATH[k] == SCORE]
-    require(not missing, f"kernels not launched on the score path: {missing}")
-    require(launches["crop_resize_area_fused"] == 0, "K5 launched on the score path")
+    require_launched(launches, "score path", k5=False)
 
     step = torch.from_numpy(packed[b:2 * b]).to(det.device)
     stage_times(det, step)  # warm
@@ -929,10 +1000,7 @@ def propagate_phase(profile_dir: Optional[str]) -> Dict[str, int]:
     for interval in (4, "auto"):
         det = steady_regression(Detector(DetectorConfig(detect_interval=interval, mtcnn=mt)))
         _, launches = drive(det, packed, 4 * b, f"propagate K={interval}")
-        silent = [k for k, v in launches.items() if v <= 0 and k not in K3_PARTS]
-        require(not silent, f"kernels not launched on the propagate path: {silent}")
-        require(all(launches[k] == 0 for k in K3_PARTS),
-                "K3 (its prep or its crop) launched where K5 should run")
+        require_launched(launches, f"propagate K={interval}", k5=True)
         if interval == "auto":
             log(f"propagate auto telemetry (warm-up and timed runs): rung "
                 f"{det.auto_interval_current}, keyframe segments {det.auto_keyframe_segments}, "
@@ -948,6 +1016,259 @@ def propagate_phase(profile_dir: Optional[str]) -> Dict[str, int]:
             if profile_dir:
                 profile_run(det, packed[:4 * b], profile_dir, "propagate_cycle")
     return fixed
+
+
+# ---------------------------------------------------------------------------
+# Multi-face path
+# ---------------------------------------------------------------------------
+
+
+def multiface_stage_times(det, packed: torch.Tensor, k: Optional[int] = None) -> dict:
+    """Milliseconds of each stage of one multi-face batch, synchronised
+    around each: I420->BGR, the cascade (with ``k``: the seed step of a
+    keyframe batch, then the refine of its rows on T x 4 candidates), the
+    tail (K4 at K = T, FaceNet on B x T crops) and the track fold of the
+    batch's frames."""
+    from truely_tpu_torch.pipeline import detector as tdet
+    from truely_tpu_torch.pipeline.mtcnn import detect_faces, refine_faces_multi
+    from truely_tpu_torch.pipeline.tracks import init_track_state
+
+    cfg, dtype, t = det.config, det.dtype, det.config.max_tracks
+    times = {}
+
+    def timed(name, fn):
+        out, times[name] = sync_ms(fn)
+        return out
+
+    with torch.inference_mode(), det._precision():
+        frames = timed("i420_to_bgr", lambda: tdet.to_frames(packed, cfg))
+        if k is None:
+            boxes, valid = timed("cascade (full, top 4 by area)", lambda: tdet.multiface_select(
+                detect_faces(det.nets.mtcnn, frames, cfg.mtcnn, dtype=dtype), t))
+        else:
+            sb, sv = timed("seed step (cascade)", lambda: tdet.multiface_detect(
+                det.nets, frames, cfg, dtype))
+            sb, sv = sb[::k].repeat_interleave(k, 0), sv[::k].repeat_interleave(k, 0)
+            boxes, valid = timed(f"refine (stages 2-3 on {t * 4} candidates)",
+                                 lambda: tdet.multiface_select(refine_faces_multi(
+                                     det.nets.mtcnn, frames, sb, sv, cfg.mtcnn, dtype=dtype), t))
+        boxes, valid, emb = timed(f"tail (K4 at K={t}, FaceNet on {packed.shape[0] * t} crops)",
+                                  lambda: tdet.multiface_tail(det.nets, frames, boxes, valid,
+                                                              cfg, dtype))
+    state = init_track_state(t, det.embedding_dim, device=det.device)
+    timed(f"track fold ({packed.shape[0]} frames)", lambda: det.track_fold(
+        state, boxes[None], valid[None], emb[None], packed.shape[0]))
+    return times
+
+
+def fold_profile(device) -> None:
+    """One batch's track fold (one stream, 32 frames, 4 tracks, 512-d
+    embeddings, seeded detections) under torch.profiler: its top-level
+    ATen calls, device kernels, device time and wall time.  It runs after
+    the device times, as they do, since the profiler slows later launches."""
+    from torch.profiler import ProfilerActivity, profile
+    from truely_tpu_torch.pipeline.tracks import init_track_state, track_timeline
+
+    g = torch.Generator(device=device).manual_seed(5)
+    f, t, d = STEP_B, MAX_TRACKS, 512
+    boxes = random_boxes(g, f, t, STEP_H, STEP_W, device, clusters=t)[None]
+    valid = torch.rand((1, f, t), generator=g, device=device) > 0.2
+    emb = torch.randn((1, f, t, d), generator=g, device=device)
+    state = init_track_state(t, d, device=device)
+
+    def fold():
+        with torch.inference_mode():
+            return track_timeline(state, boxes, valid, emb, f)
+
+    fold()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        _, wall = sync_ms(fold)
+    aten = [e for e in prof.events() if e.name.startswith("aten::")
+            and (e.cpu_parent is None or not e.cpu_parent.name.startswith("aten::"))]
+    kernels = sum(e.count for e in device_events(prof))
+    log(f"track fold profile ({f} frames, {t} tracks): {len(aten)} top-level ATen calls "
+        f"({len(aten) / f:.1f} a frame), {kernels} device kernels and copies, "
+        f"{profiled_device_us(prof) / 1e3:.3f} ms of device time in {wall:.3f} ms wall")
+
+
+def log_stages(label: str, times: dict) -> None:
+    fold = next(v for name, v in times.items() if name.startswith("track fold"))
+    log(f"multiface stages {label} (ms, one batch of {STEP_B}, synchronised per stage): "
+        + json.dumps({k: round(v, 3) for k, v in times.items()})
+        + f"; the track fold's share of the batch: {fold / sum(times.values()):.4f}")
+
+
+def drive_tracks(det, packed: np.ndarray, n_warm: int, label: str) -> Dict[str, int]:
+    """``analyze_i420_tracks`` on the first ``n_warm`` frames (warm-up),
+    then, with every launch count set to 0 just before, on the rest;
+    checks the result and returns the launches of the timed run."""
+    det.analyze_i420_tracks(packed[:n_warm], fps=FPS)
+    torch.cuda.synchronize()
+    fallback0 = det.fallback_segments
+    counters = reset_launches()
+    t0 = time.perf_counter()
+    agg, per_track, state = det.analyze_i420_tracks(packed[n_warm:], fps=FPS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches(counters)
+    n, t = packed.shape[0] - n_warm, det.config.max_tracks
+    require(all(x.device.type == det.device.type for x in state),
+            f"multiface {label}: state off {det.device}")
+    require(per_track.shape == (t,) and per_track.min() >= 0 and per_track.max() <= 100
+            and agg == per_track.max(), f"multiface {label}: scores {per_track}, {agg}")
+    require(bool(torch.isfinite(state.box).all() and torch.isfinite(state.embedding).all()),
+            f"multiface {label}: non-finite track state")
+    require(int(state.processed.max()) < n, f"multiface {label}: processed {state.processed}")
+    log(f"multiface {label}: {n} sampled frames in {wall:.4f} s = {n / wall:.2f} sampled "
+        f"frames/s ({n // det.config.frame_batch} batches); active tracks "
+        f"{int(state.active.sum())}/{t}; counter updates per track {state.processed.tolist()}; "
+        f"per-track scores {per_track.tolist()}, aggregate {agg}; segments re-run by the "
+        f"propagate fallback: {det.fallback_segments - fallback0}")
+    log(json.dumps({"path": f"{MULTIFACE} {label}", "launches": launches}))
+    return launches
+
+
+def multiface_phase() -> Dict[str, int]:
+    """The multi-face path: ``analyze_i420_tracks`` at the bf16 defaults
+    (K=1), then at K=4 and "auto" on the exact crop chain; returns each
+    kernel's launches summed over the three timed runs."""
+    from truely_tpu_torch.config import DetectorConfig, MTCNNConfig
+    from truely_tpu_torch.pipeline.detector import Detector
+
+    cfg = DetectorConfig(multi_face=True, max_tracks=MAX_TRACKS)
+    b = cfg.frame_batch
+    det = Detector(cfg)
+    packed = synthetic_i420(b * (1 + MF_BATCHES), STEP_H, STEP_W, seed=31)
+    total = drive_tracks(det, packed, b, "K=1")
+    require_launched(total, "multiface K=1", k5=False)
+    step = torch.from_numpy(packed[:b]).to(det.device)
+    multiface_stage_times(det, step)  # warm
+    log_stages("K=1", multiface_stage_times(det, step))
+
+    mt = MTCNNConfig(stage_crop_quant=1, use_fused_crops=1, thresholds=PROP_THRESHOLDS)
+    packed = stable_i420(b * (4 + MF_PROP_BATCHES), STEP_H, STEP_W, seed=33)
+    for interval in (4, "auto"):
+        det = steady_regression(Detector(DetectorConfig(
+            multi_face=True, max_tracks=MAX_TRACKS, detect_interval=interval, mtcnn=mt)))
+        launches = drive_tracks(det, packed, 4 * b, f"K={interval}")
+        require_launched(launches, f"multiface K={interval}", k5=True)
+        total = add_launches(total, launches)
+        if interval == "auto":
+            log(f"multiface auto telemetry (warm-up and timed runs): rung "
+                f"{det.auto_interval_current}, keyframe segments {det.auto_keyframe_segments}, "
+                f"refine segments {det.auto_refine_segments}")
+            require(det.auto_refine_segments > 0 and det.auto_interval_current > 1,
+                    "the multi-face auto ladder did not climb")
+        else:
+            step = torch.from_numpy(packed[:b]).to(det.device)
+            multiface_stage_times(det, step, k=4)  # warm
+            log_stages("K=4", multiface_stage_times(det, step, k=4))
+    return total
+
+
+# ---------------------------------------------------------------------------
+# Stream path
+# ---------------------------------------------------------------------------
+
+
+def stream_content(n_streams: int, n: int, h: int, w: int, seed: int) -> List[np.ndarray]:
+    """Each stream its own stable content: one seeded base frame shifted by
+    0-14 px; stream i has n - (i % 3) frames, so the last steps pad."""
+    return [stable_i420(n - i % 3, h, w, seed=seed + i, n_base=1) for i in range(n_streams)]
+
+
+def feed_streams(sched, content: List[np.ndarray]) -> Tuple[list, list]:
+    """Push the streams' frames round robin, a step whenever a whole batch
+    is queued, then drain.  Returns (events, the "auto" rung after each
+    step, or None)."""
+    events, rungs = [], []
+    rows = sched.n_streams * sched.frames_per_stream
+
+    def step():
+        events.extend(sched.step())
+        rungs.append(getattr(sched, "_cur_k", None))
+
+    for t in range(max(len(c) for c in content)):
+        for i, c in enumerate(content):
+            if t < len(c):
+                sched.push(i, c[t])
+        if sched.pending() >= rows:
+            step()
+    while sched.pending():
+        step()
+    return events, rungs
+
+
+def drive_stream(det, content: List[np.ndarray], label: str, **kw):
+    """A ``StreamScheduler`` over the streams (I420, one warm-up scheduler
+    on their first 12 frames), the launch counts set to 0 just before the
+    timed run; checks one event per pushed sampled frame.  Returns
+    (scheduler, launches, rungs)."""
+    from truely_tpu_torch.pipeline.streaming import StreamScheduler
+
+    def scheduler():
+        return StreamScheduler(det, len(content), frames_per_stream=STREAM_FRAMES, fps=FPS,
+                               yuv=True, **kw)
+
+    feed_streams(scheduler(), [c[:3 * STREAM_FRAMES] for c in content])
+    torch.cuda.synchronize()
+    sched = scheduler()
+    counters = reset_launches()
+    t0 = time.perf_counter()
+    events, rungs = feed_streams(sched, content)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches(counters)
+    require(all(x.device.type == det.device.type for x in sched._states),
+            f"stream {label}: state off {det.device}")
+    pushed = sum(len(c) for c in content)
+    require(sorted((e.stream_id, e.frame_index) for e in events)
+            == [(i, t) for i, c in enumerate(content) for t in range(len(c))],
+            f"stream {label}: {len(events)} events for {pushed} pushed sampled frames")
+    sims = np.array([e.track_sim if sched.multi_face else e.similarity for e in events])
+    require(bool(np.isfinite(sims).all() and (np.abs(sims) <= 1.0 + 1e-5).all()),
+            f"stream {label}: similarities out of range")
+    scores = [sched.score(i) for i in range(len(content))]
+    require(all(0 <= s <= 100 for s in scores), f"stream {label}: scores {scores}")
+    per_track = ([sched.track_scores_for(i).tolist() for i in range(len(content))]
+                 if sched.multi_face else None)
+    log(f"stream {label}: {pushed} sampled frames of {len(content)} streams in {wall:.4f} s = "
+        f"{pushed / wall:.2f} sampled frames/s; steps {sched.steps_run}, keyframe steps "
+        f"{sched.keyframe_steps}, padded rows {sched.frames_padded}; frames with a face "
+        f"{sum(e.has_face for e in events)}; scores {scores}"
+        + (f"; per-track scores {per_track}" if per_track else "")
+        + (f"; rungs {rungs}" if sched.auto_interval else ""))
+    log(json.dumps({"path": f"{STREAM} {label}", "launches": launches}))
+    return sched, launches, rungs
+
+
+def stream_phase() -> Dict[str, int]:
+    """The stream path: 8 streams x 4 frames a step at 1080p, I420,
+    single-face at the defaults, at K=4 and at "auto", and multi-face at
+    K=4; returns each kernel's launches summed over the four timed runs."""
+    from truely_tpu_torch.config import DetectorConfig, MTCNNConfig
+    from truely_tpu_torch.pipeline.detector import Detector
+
+    t0 = time.perf_counter()
+    content = stream_content(STREAMS, STREAM_LEN, STEP_H, STEP_W, seed=41)
+    log(f"stream: {STREAMS} streams of stable {STEP_W}x{STEP_H} I420 ready in "
+        f"{time.perf_counter() - t0:.1f} s")
+    _, total, _ = drive_stream(Detector(DetectorConfig()), content, "single-face K=1")
+    require_launched(total, "stream single-face K=1", k5=False)
+    mt = MTCNNConfig(thresholds=PROP_THRESHOLDS)
+    for label, cfg in (
+            ("single-face K=4", DetectorConfig(detect_interval=4, mtcnn=mt)),
+            ("single-face auto", DetectorConfig(detect_interval="auto", mtcnn=mt)),
+            ("multi-face K=4", DetectorConfig(detect_interval=4, multi_face=True,
+                                              max_tracks=MAX_TRACKS, mtcnn=mt))):
+        sched, launches, rungs = drive_stream(steady_regression(Detector(cfg)), content, label)
+        require_launched(launches, f"stream {label}", k5=False)
+        require(0 < sched.keyframe_steps < sched.steps_run, f"stream {label}: no refine step ran")
+        if sched.auto_interval:
+            require(max(rungs) > 1, "the stream auto ladder did not climb")
+        total = add_launches(total, launches)
+    return total
 
 
 # ---------------------------------------------------------------------------
@@ -970,9 +1291,41 @@ def compare_runs(label: str, gpu, cpu) -> None:
     require(box_err <= 1.0 and sim_err <= 2e-4, f"{label}: box err {box_err} px, sim err {sim_err}")
 
 
+def compare_tracks(label: str, gpu, cpu) -> None:
+    """(aggregate, per-track scores, TrackState) of a card run and a CPU
+    run: scores and the discrete state equal, boxes within 1 px,
+    embeddings within 2e-4."""
+    require(gpu[0] == cpu[0] and np.array_equal(gpu[1], cpu[1]),
+            f"{label}: scores differ: card {gpu[:2]}, CPU {cpu[:2]}")
+    for name in ("active", "has_prev", "counter", "flagged_count", "processed", "misses",
+                 "final_counter"):
+        a, b = getattr(gpu[2], name).cpu(), getattr(cpu[2], name)
+        require(torch.equal(a, b), f"{label}: {name} differs: card {a}, CPU {b}")
+    require(int(cpu[2].processed.sum()) > 0, f"{label}: cross-check needs matched tracks")
+    box_err = float((gpu[2].box.cpu() - cpu[2].box).abs().max())
+    emb_err = float((gpu[2].embedding.cpu() - cpu[2].embedding).abs().max())
+    log(f"xcheck float32 {label}: counter updates per track {cpu[2].processed.tolist()} on "
+        f"both; max box err {box_err} px, max embedding err {emb_err:.3e}; per-track scores "
+        f"{gpu[1].tolist()} / {cpu[1].tolist()}")
+    require(box_err <= 1.0 and emb_err <= 2e-4, f"{label}: box err {box_err}, emb err {emb_err}")
+
+
+def compare_events(label: str, gpu: list, cpu: list) -> None:
+    keys = lambda e: (e.stream_id, e.frame_index, e.has_face, e.flagged, e.annotated, e.counter)
+    require([keys(e) for e in gpu] == [keys(e) for e in cpu], f"{label}: event decisions differ")
+    require(sum(e.has_face for e in cpu) >= 2, f"{label}: cross-check needs face frames")
+    box_err = float(np.abs(np.array([e.box for e in gpu]) - np.array([e.box for e in cpu])).max())
+    sim_err = float(np.abs(np.array([e.similarity for e in gpu])
+                           - np.array([e.similarity for e in cpu])).max())
+    log(f"xcheck float32 {label}: {len(cpu)} events, {sum(e.has_face for e in cpu)} with a face "
+        f"on both; max box err {box_err} px, max sim err {sim_err:.3e}")
+    require(box_err <= 1.0 and sim_err <= 2e-4, f"{label}: box err {box_err}, sim err {sim_err}")
+
+
 def xcheck_phase() -> None:
     from truely_tpu_torch.config import DetectorConfig, MTCNNConfig
     from truely_tpu_torch.pipeline.detector import Detector
+    from truely_tpu_torch.pipeline.streaming import StreamScheduler
 
     torch.set_num_threads(min(8, os.cpu_count() or 1))
     mt = MTCNNConfig(thresholds=XCHECK_THRESHOLDS)
@@ -986,6 +1339,21 @@ def xcheck_phase() -> None:
         gpu = prep(Detector(cfg)).analyze_i420(packed, fps=FPS)
         cpu = prep(Detector(cfg, device="cpu")).analyze_i420(packed, fps=FPS)
         compare_runs(label, gpu, cpu)
+
+    multi = DetectorConfig(frame_batch=16, compute_dtype="float32", detect_interval=4,
+                           multi_face=True, max_tracks=MAX_TRACKS,
+                           mtcnn=MTCNNConfig(thresholds=XCHECK_THRESHOLDS, use_fused_crops=1))
+    packed = stable_i420(16, 360, 640, seed=14)
+    compare_tracks("multi-face K=4 use_fused_crops=1", *(
+        steady_regression(Detector(multi, device=d)).analyze_i420_tracks(packed, fps=FPS)
+        for d in ("cuda", "cpu")))
+    stream = DetectorConfig(frame_batch=16, compute_dtype="float32", detect_interval=4,
+                            mtcnn=MTCNNConfig(thresholds=XCHECK_THRESHOLDS))
+    content = stream_content(2, 16, 360, 640, seed=15)
+    compare_events("2-stream scheduler K=4", *(
+        feed_streams(StreamScheduler(steady_regression(Detector(stream, device=d)), 2,
+                                     frames_per_stream=4, fps=FPS, yuv=True), content)[0]
+        for d in ("cuda", "cpu")))
 
 
 def main(argv=None) -> int:
@@ -1020,9 +1388,12 @@ def main(argv=None) -> int:
     rows = kernel_phase(forms)
     launch_floor("cuda")
     if not args.kernels_only:
-        launches = {SCORE: e2e_phase(args.profile), PROPAGATE: propagate_phase(args.profile)}
+        launches = {SCORE: e2e_phase(args.profile), PROPAGATE: propagate_phase(args.profile),
+                    MULTIFACE: multiface_phase(), STREAM: stream_phase()}
         xcheck_phase()
     device_phase(forms, rows)
+    if not args.kernels_only:
+        fold_profile("cuda")
     summary = kernel_summary(rows)
     if args.sweep:
         sweep(forms)

@@ -71,6 +71,11 @@ class DetectorConfig:
     compute_dtype: str = "bfloat16"
     # Long-video weighting kicks in above this many seconds.
     long_video_seconds: int = 30
+    # Per-face tracks (pipeline/tracks.py) instead of the largest face
+    # only: up to max_tracks faces per frame, each with its own counter and
+    # score; the video's score is the max over tracks.
+    multi_face: bool = False
+    max_tracks: int = 4
     # Track-propagated detection: the full cascade runs on every K-th
     # sampled frame only (a keyframe); the frames between refine the
     # keyframe's box through R-Net/O-Net (pipeline/mtcnn.refine_faces).

@@ -47,19 +47,23 @@ def pad_crop_bounds(boxes: torch.Tensor, width: int, height: int) -> torch.Tenso
     return torch.stack([x0, y0, x1, y1], dim=-1)
 
 
-def box_area(boxes: torch.Tensor) -> torch.Tensor:
-    return (boxes[..., 2] - boxes[..., 0] + 1.0) * (boxes[..., 3] - boxes[..., 1] + 1.0)
+def box_area(boxes: torch.Tensor, plus_one: bool = True) -> torch.Tensor:
+    off = 1.0 if plus_one else 0.0
+    return (boxes[..., 2] - boxes[..., 0] + off) * (boxes[..., 3] - boxes[..., 1] + off)
 
 
-def iou_matrix(boxes: torch.Tensor, *, method: str = "union") -> torch.Tensor:
-    """Pairwise IoU of (..., K, 4) boxes -> (..., K, K) with the +1
-    convention; ``method='min'`` divides by the smaller area."""
+def iou_matrix(boxes: torch.Tensor, *, method: str = "union",
+               plus_one: bool = True) -> torch.Tensor:
+    """Pairwise IoU of (..., K, 4) boxes -> (..., K, K), with the +1
+    convention unless ``plus_one=False`` (the track matcher);
+    ``method='min'`` divides by the smaller area."""
+    off = 1.0 if plus_one else 0.0
     a = boxes[..., :, None, :]
     b = boxes[..., None, :, :]
-    ix = (torch.minimum(a[..., 2], b[..., 2]) - torch.maximum(a[..., 0], b[..., 0]) + 1.0).clamp_min(0.0)
-    iy = (torch.minimum(a[..., 3], b[..., 3]) - torch.maximum(a[..., 1], b[..., 1]) + 1.0).clamp_min(0.0)
+    ix = (torch.minimum(a[..., 2], b[..., 2]) - torch.maximum(a[..., 0], b[..., 0]) + off).clamp_min(0.0)
+    iy = (torch.minimum(a[..., 3], b[..., 3]) - torch.maximum(a[..., 1], b[..., 1]) + off).clamp_min(0.0)
     inter = ix * iy
-    area = box_area(boxes)
+    area = box_area(boxes, plus_one)
     if method == "min":
         denom = torch.minimum(area[..., :, None], area[..., None, :])
     else:

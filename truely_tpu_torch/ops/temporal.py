@@ -27,53 +27,63 @@ class TemporalState(NamedTuple):
     counter: torch.Tensor         # () int32 run-length counter
 
 
-def init_temporal_state(dim: int, device=None) -> TemporalState:
+def init_temporal_state(dim: int, device=None, lead: tuple = ()) -> TemporalState:
+    """The empty state, one per index of the leading shape ``lead``."""
     return TemporalState(
-        prev_embedding=torch.zeros(dim, dtype=torch.float32, device=device),
-        has_prev=torch.zeros((), dtype=torch.bool, device=device),
-        counter=torch.zeros((), dtype=torch.int32, device=device),
+        prev_embedding=torch.zeros(lead + (dim,), dtype=torch.float32, device=device),
+        has_prev=torch.zeros(lead, dtype=torch.bool, device=device),
+        counter=torch.zeros(lead, dtype=torch.int32, device=device),
     )
 
 
 class TemporalResult(NamedTuple):
-    similarity: torch.Tensor      # (T,) f32, 0 where undefined
-    counter: torch.Tensor         # (T,) int32 after each frame's update
-    flagged: torch.Tensor         # (T,) bool, drawn red
-    annotated: torch.Tensor       # (T,) bool, any box drawn
-    has_face: torch.Tensor        # (T,) bool
-    flagged_count: torch.Tensor   # () int32
-    final_counter: torch.Tensor   # () int32
+    similarity: torch.Tensor      # (..., T) f32, 0 where undefined
+    counter: torch.Tensor         # (..., T) int32 after each frame's update
+    flagged: torch.Tensor         # (..., T) bool, drawn red
+    annotated: torch.Tensor       # (..., T) bool, any box drawn
+    has_face: torch.Tensor        # (..., T) bool
+    flagged_count: torch.Tensor   # (...) int32
+    final_counter: torch.Tensor   # (...) int32
     state: TemporalState
 
 
 def resettable_run_length(update: torch.Tensor, below: torch.Tensor,
                           initial: torch.Tensor) -> torch.Tensor:
     """c[t] = c[t-1] + 1 if update and below; 0 if update and not below;
-    c[t-1] if not update.  ``initial`` is the counter carried in."""
-    t = update.shape[0]
+    c[t-1] if not update, along the last axis.  ``initial`` (the leading
+    axes' shape) is the counter carried in."""
+    t = update.shape[-1]
     idx = torch.arange(t, dtype=torch.int32, device=update.device)
     reset = update & ~below
-    counts = torch.cumsum((update & below).to(torch.int32), 0, dtype=torch.int32)
-    last_reset = torch.cummax(torch.where(reset, idx, -1), 0).values
+    counts = torch.cumsum((update & below).to(torch.int32), -1, dtype=torch.int32)
+    last_reset = torch.cummax(torch.where(reset, idx, -1), -1).values
     # A reset frame counts 0 itself, so the run since it is counts - counts[r].
     base = torch.where(
-        last_reset >= 0, counts[last_reset.clamp_min(0)], -initial.to(torch.int32)
+        last_reset >= 0, torch.gather(counts, -1, last_reset.clamp_min(0).long()),
+        -initial.to(torch.int32)[..., None]
     )
     return counts - base
 
 
 def previous_face_index(has_face: torch.Tensor) -> torch.Tensor:
-    """Index of the last face frame strictly before each frame, or -1."""
-    t = has_face.shape[0]
+    """Index of the last face frame strictly before each frame, or -1,
+    along the last axis."""
+    t = has_face.shape[-1]
     idx = torch.arange(t, dtype=torch.int32, device=has_face.device)
-    cummax = torch.cummax(torch.where(has_face, idx, -1), 0).values
-    return torch.cat([cummax.new_full((1,), -1), cummax[:-1]])
+    cummax = torch.cummax(torch.where(has_face, idx, -1), -1).values
+    return torch.cat([cummax.new_full(cummax.shape[:-1] + (1,), -1), cummax[..., :-1]], -1)
+
+
+def _take_rows(emb: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """emb (..., N, D) rows at idx (..., M) -> (..., M, D)."""
+    idx = idx.clamp_min(0).long()[..., None]
+    return torch.gather(emb, -2, idx.expand(idx.shape[:-1] + (emb.shape[-1],)))
 
 
 def temporal_consistency(
     embeddings: torch.Tensor,
     has_face: torch.Tensor,
-    n_sampled: int,
+    n_sampled,
     *,
     state: TemporalState | None = None,
     similarity_threshold: float = 0.99,
@@ -81,25 +91,30 @@ def temporal_consistency(
 ) -> TemporalResult:
     """Temporal consistency over one batch of the timeline.
 
-    embeddings: (T, D); has_face: (T,) bool; frames at ``t >= n_sampled``
-    are padding and inert.  Folding batch by batch through ``state`` gives
-    the same result as one call over the whole timeline.
+    embeddings: (..., T, D); has_face: (..., T) bool; frames at
+    ``t >= n_sampled`` (an int, or a tensor of the leading shape) are
+    padding and inert.  Leading axes are independent timelines (the
+    stream scheduler's streams), each with its own ``state``.  Folding
+    batch by batch through ``state`` gives the same result as one call
+    over the whole timeline.
     """
-    t_axis, dim = embeddings.shape
+    *lead, t_axis, dim = embeddings.shape
     device = embeddings.device
     if state is None:
         state = init_temporal_state(dim, device)
     idx = torch.arange(t_axis, device=device)
+    if isinstance(n_sampled, torch.Tensor):
+        n_sampled = n_sampled[..., None]
     has_face = has_face & (idx < n_sampled)
 
     emb = embeddings.float()
     # Slot 0 carries the previous batch's last face embedding.
-    emb_ext = torch.cat([state.prev_embedding[None], emb], 0)
-    has_face_ext = torch.cat([state.has_prev[None], has_face], 0)
-    prev_idx = previous_face_index(has_face_ext)[1:]
+    emb_ext = torch.cat([state.prev_embedding[..., None, :], emb], -2)
+    has_face_ext = torch.cat([state.has_prev[..., None], has_face], -1)
+    prev_idx = previous_face_index(has_face_ext)[..., 1:]
     has_prev = has_face & (prev_idx >= 0)
 
-    prev_emb = emb_ext[prev_idx.clamp_min(0).long()]
+    prev_emb = _take_rows(emb_ext, prev_idx)
     dot = torch.sum(emb * prev_emb, dim=-1)
     norms = torch.linalg.vector_norm(emb, dim=-1) * torch.linalg.vector_norm(prev_emb, dim=-1)
     sim = torch.where(has_prev, dot / norms.clamp_min(1e-12), 0.0)
@@ -109,12 +124,12 @@ def temporal_consistency(
     flagged = has_prev & (counter > run_length_threshold)
 
     last_face_ext = previous_face_index(
-        torch.cat([has_face_ext, has_face_ext.new_ones(1)], 0)
-    )[-1]
+        torch.cat([has_face_ext, has_face_ext.new_ones(has_face_ext.shape[:-1] + (1,))], -1)
+    )[..., -1:]
     new_state = TemporalState(
-        prev_embedding=emb_ext[last_face_ext.clamp_min(0).long()],
-        has_prev=state.has_prev | has_face.any(),
-        counter=counter[-1] if t_axis > 0 else state.counter,
+        prev_embedding=_take_rows(emb_ext, last_face_ext)[..., 0, :],
+        has_prev=state.has_prev | has_face.any(-1),
+        counter=counter[..., -1] if t_axis > 0 else state.counter,
     )
     return TemporalResult(
         similarity=sim,
@@ -122,7 +137,7 @@ def temporal_consistency(
         flagged=flagged,
         annotated=has_prev,
         has_face=has_face,
-        flagged_count=flagged.sum(dtype=torch.int32),
+        flagged_count=flagged.sum(-1, dtype=torch.int32),
         final_counter=new_state.counter,
         state=new_state,
     )

@@ -13,6 +13,14 @@ With ``detect_interval`` K > 1 (or "auto") detection is track-propagated:
 the full cascade runs only on every K-th sampled frame, whose rows of K
 uploaded batches are gathered on the device into one full-width seed batch,
 and the frames between refine the keyframe's box (``refine_faces``).
+
+``analyze_frames_tracks`` and ``analyze_i420_tracks`` are the multi-face
+counterparts (the JAX ``analyze_video_multiface``): up to ``max_tracks``
+faces per frame are embedded (``multiface_step``) and folded into
+per-track states (``pipeline/tracks.py``), with the same keyframe cycles
+and "auto" ladder (``refine_faces_multi`` between keyframes).  The
+``*_refine`` steps are the stream scheduler's: every row refines its
+stream's carried seeds.
 """
 
 from __future__ import annotations
@@ -21,7 +29,7 @@ import contextlib
 import itertools
 import time
 from dataclasses import dataclass, field
-from typing import Dict, List, Mapping, NamedTuple, Optional, Tuple
+from typing import Callable, Dict, List, Mapping, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -34,9 +42,14 @@ from truely_tpu_torch.ops.temporal import (
     TemporalResult, TemporalState, init_temporal_state, temporal_consistency,
     weighted_score,
 )
+from truely_tpu_torch.ops.topk import exact_topk_lastdim
 from truely_tpu_torch.ops.yuv import i420_to_bgr
 from truely_tpu_torch.pipeline.mtcnn import (
-    MTCNNNets, detect_faces, refine_faces, select_primary_face,
+    Detections, MTCNNNets, detect_faces, refine_faces, refine_faces_multi,
+    select_primary_face,
+)
+from truely_tpu_torch.pipeline.tracks import (
+    TrackState, init_track_state, stream_state, track_scores, track_timeline,
 )
 
 
@@ -87,15 +100,25 @@ class VideoAnalysis:
 
 
 def clamp_box(box: torch.Tensor, h: int, w: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Reference crop semantics of a (B, 4) box: trunc to int, clamp to the
-    frame.  Returns the (B, 4) int32 bounds and whether each is
+    """Reference crop semantics of (..., 4) boxes: trunc to int, clamp to
+    the frame.  Returns the (..., 4) int32 bounds and whether each is
     non-degenerate (the clamp gate)."""
     bi = box.to(torch.int32)
-    x0 = bi[:, 0].clamp_min(0)
-    y0 = bi[:, 1].clamp_min(0)
-    x1 = bi[:, 2].clamp_max(w)
-    y1 = bi[:, 3].clamp_max(h)
+    x0 = bi[..., 0].clamp_min(0)
+    y0 = bi[..., 1].clamp_min(0)
+    x1 = bi[..., 2].clamp_max(w)
+    y1 = bi[..., 3].clamp_max(h)
     return torch.stack([x0, y0, x1, y1], dim=-1), (x1 > x0) & (y1 > y0)
+
+
+def face_crops(frames: torch.Tensor, bounds: torch.Tensor, cfg: DetectorConfig) -> torch.Tensor:
+    """(B, K, 4) clamped bounds -> (B·K, S, S, 3) FaceNet inputs: the
+    bilinear crop (kernel K4) and the input scaling."""
+    crops = crop_resize_bilinear(frames, bounds, cfg.crop_size)
+    crops = crops.reshape((-1,) + tuple(crops.shape[2:]))
+    if cfg.reference_compat:
+        return crops * (1.0 / 255.0)   # torchvision to_tensor, no standardization
+    return (crops - 127.5) * (1.0 / 128.0)
 
 
 def embed_tail(nets: DetectorNets, frames: torch.Tensor, box: torch.Tensor,
@@ -104,15 +127,17 @@ def embed_tail(nets: DetectorNets, frames: torch.Tensor, box: torch.Tensor,
     normalization, FaceNet embedding and the landmark head."""
     bounds, ok = clamp_box(box, frames.shape[1], frames.shape[2])
     has_face = has_face & ok
-    crops = crop_resize_bilinear(frames, bounds[:, None, :], cfg.crop_size)[:, 0]
-    if cfg.reference_compat:
-        crops = crops * (1.0 / 255.0)   # torchvision to_tensor, no standardization
-    else:
-        crops = (crops - 127.5) * (1.0 / 128.0)
+    crops = face_crops(frames, bounds[:, None, :], cfg)
     emb = nets.facenet(crops, dtype)
     lmk = nets.landmark(crops, dtype)
     return FrameOutputs(box=box, crop_bounds=bounds, has_face=has_face,
                         embedding=emb, landmarks68=lmk)
+
+
+def to_frames(packed: torch.Tensor, cfg: DetectorConfig) -> torch.Tensor:
+    """Packed I420 (B, 3H/2, W) uint8 -> the (B, H, W, 3) frames the steps
+    take, by kernel K1 (bit-identical to cv2's BGR decode)."""
+    return i420_to_bgr(packed, rgb=not cfg.reference_compat)
 
 
 def frame_step(nets: DetectorNets, frames: torch.Tensor, cfg: DetectorConfig,
@@ -126,9 +151,9 @@ def frame_step(nets: DetectorNets, frames: torch.Tensor, cfg: DetectorConfig,
 def frame_step_yuv(nets: DetectorNets, packed: torch.Tensor, cfg: DetectorConfig,
                    dtype) -> FrameOutputs:
     """The frame step on packed I420 (B, 3H/2, W) uint8, converted on the
-    device by kernel K1 (bit-identical to cv2's BGR decode)."""
-    frames = i420_to_bgr(packed, rgb=not cfg.reference_compat)
-    return frame_step(nets, frames, cfg, dtype)
+    device by kernel K1 (``to_frames``).  Every ``*_yuv`` step is its
+    step on ``to_frames(packed)``."""
+    return frame_step(nets, to_frames(packed, cfg), cfg, dtype)
 
 
 def frame_step_detect(nets: DetectorNets, frames: torch.Tensor, cfg: DetectorConfig,
@@ -145,8 +170,7 @@ def frame_step_detect(nets: DetectorNets, frames: torch.Tensor, cfg: DetectorCon
 
 def frame_step_detect_yuv(nets: DetectorNets, packed: torch.Tensor, cfg: DetectorConfig,
                           dtype) -> Tuple[torch.Tensor, torch.Tensor]:
-    frames = i420_to_bgr(packed, rgb=not cfg.reference_compat)
-    return frame_step_detect(nets, frames, cfg, dtype)
+    return frame_step_detect(nets, to_frames(packed, cfg), cfg, dtype)
 
 
 def frame_step_propagate(nets: DetectorNets, frames: torch.Tensor, seed_boxes: torch.Tensor,
@@ -172,8 +196,153 @@ def frame_step_propagate(nets: DetectorNets, frames: torch.Tensor, seed_boxes: t
 def frame_step_propagate_yuv(nets: DetectorNets, packed: torch.Tensor,
                              seed_boxes: torch.Tensor, seed_valid: torch.Tensor,
                              cfg: DetectorConfig, dtype, k: Optional[int] = None) -> FrameOutputs:
-    frames = i420_to_bgr(packed, rgb=not cfg.reference_compat)
-    return frame_step_propagate(nets, frames, seed_boxes, seed_valid, cfg, dtype, k=k)
+    return frame_step_propagate(nets, to_frames(packed, cfg), seed_boxes, seed_valid, cfg,
+                                dtype, k=k)
+
+
+def frame_step_refine(nets: DetectorNets, frames: torch.Tensor, seed_boxes: torch.Tensor,
+                      seed_valid: torch.Tensor, cfg: DetectorConfig, dtype,
+                      rows_per_seed: int) -> FrameOutputs:
+    """Seeded refinement of every row (the stream scheduler's step between
+    keyframe steps): ``frames`` is (S·rows_per_seed, ...) grouped per
+    stream, ``seed_boxes``/``seed_valid`` (S,) each stream's carried seed.
+    No row passes its seed through, so a stale seed is re-checked (and can
+    be rejected) on every sampled frame."""
+    sb = seed_boxes.repeat_interleave(rows_per_seed, dim=0)
+    sv = seed_valid.repeat_interleave(rows_per_seed, dim=0)
+    det = refine_faces(nets.mtcnn, frames, sb, sv, cfg.mtcnn, dtype=dtype)
+    box, _score, ok = select_primary_face(det, largest=cfg.mtcnn.select_largest)
+    return embed_tail(nets, frames, box, ok, cfg, dtype)
+
+
+def frame_step_refine_yuv(nets: DetectorNets, packed: torch.Tensor, seed_boxes: torch.Tensor,
+                          seed_valid: torch.Tensor, cfg: DetectorConfig, dtype,
+                          rows_per_seed: int) -> FrameOutputs:
+    return frame_step_refine(nets, to_frames(packed, cfg), seed_boxes, seed_valid, cfg, dtype,
+                             rows_per_seed)
+
+
+# ---------------------------------------------------------------------------
+# Multi-face steps: each returns (boxes (B, T, 4) f32, valid (B, T) bool,
+# embeddings (B, T, D)), T = max_tracks; the cascade-only seed step returns
+# (boxes, valid).
+
+
+def multiface_select(det: Detections, t: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The top ``t`` detections per frame by box area (no +1), invalid
+    slots last at -inf, ties to the lower index (as ``jax.lax.top_k``)."""
+    area = (det.boxes[..., 2] - det.boxes[..., 0]) * (det.boxes[..., 3] - det.boxes[..., 1])
+    key = torch.where(det.valid, area, -torch.inf)
+    _, idx = exact_topk_lastdim(key, t)
+    boxes = torch.gather(det.boxes, 1, idx[..., None].expand(-1, -1, 4))
+    return boxes, torch.gather(det.valid, 1, idx)
+
+
+def multiface_tail(nets: DetectorNets, frames: torch.Tensor, boxes: torch.Tensor,
+                   valid: torch.Tensor, cfg: DetectorConfig, dtype):
+    """The clamp gate, the face crops of the (B, T) boxes (kernel K4 at
+    K = T) and FaceNet on the B·T crops, shared by every multi-face step so
+    that keyframe rows of the propagate step equal the full step's.  No
+    landmark head."""
+    b, t = boxes.shape[:2]
+    bounds, ok = clamp_box(boxes, frames.shape[1], frames.shape[2])
+    emb = nets.facenet(face_crops(frames, bounds, cfg), dtype).reshape(b, t, -1)
+    return boxes.to(torch.float32), valid & ok, emb
+
+
+def multiface_step(nets: DetectorNets, frames: torch.Tensor, cfg: DetectorConfig, dtype):
+    """The full cascade, then the top ``max_tracks`` faces of each frame
+    embedded."""
+    det = detect_faces(nets.mtcnn, frames, cfg.mtcnn, dtype=dtype)
+    boxes, valid = multiface_select(det, cfg.max_tracks)
+    return multiface_tail(nets, frames, boxes, valid, cfg, dtype)
+
+
+def multiface_step_yuv(nets: DetectorNets, packed: torch.Tensor, cfg: DetectorConfig, dtype):
+    return multiface_step(nets, to_frames(packed, cfg), cfg, dtype)
+
+
+def multiface_detect(nets: DetectorNets, frames: torch.Tensor, cfg: DetectorConfig,
+                     dtype) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Cascade-only multi-face seed step of the keyframe batch: (boxes,
+    valid) equal to the full step's, the clamp gate included."""
+    det = detect_faces(nets.mtcnn, frames, cfg.mtcnn, dtype=dtype)
+    boxes, valid = multiface_select(det, cfg.max_tracks)
+    _, ok = clamp_box(boxes, frames.shape[1], frames.shape[2])
+    return boxes, valid & ok
+
+
+def multiface_detect_yuv(nets: DetectorNets, packed: torch.Tensor, cfg: DetectorConfig,
+                         dtype) -> Tuple[torch.Tensor, torch.Tensor]:
+    return multiface_detect(nets, to_frames(packed, cfg), cfg, dtype)
+
+
+def multiface_step_propagate(nets: DetectorNets, frames: torch.Tensor,
+                             seed_boxes: torch.Tensor, seed_valid: torch.Tensor,
+                             cfg: DetectorConfig, dtype, k: Optional[int] = None):
+    """Track-propagated multi-face step: ``seed_boxes`` (B/K, T, 4) and
+    ``seed_valid`` (B/K, T) are the keyframes' detections.  Keyframe rows
+    pass their seeds through; the rows between refine all T seeds
+    (``refine_faces_multi``)."""
+    k = k if k is not None else cfg.detect_interval
+    b = frames.shape[0]
+    sb = seed_boxes.repeat_interleave(k, dim=0)    # (B, T, 4)
+    sv = seed_valid.repeat_interleave(k, dim=0)    # (B, T)
+    det = refine_faces_multi(nets.mtcnn, frames, sb, sv, cfg.mtcnn, dtype=dtype)
+    boxes, valid = multiface_select(det, cfg.max_tracks)
+    is_kf = (torch.arange(b, device=frames.device) % k) == 0
+    boxes = torch.where(is_kf[:, None, None], sb, boxes)
+    valid = torch.where(is_kf[:, None], sv, valid)
+    return multiface_tail(nets, frames, boxes, valid, cfg, dtype)
+
+
+def multiface_step_propagate_yuv(nets: DetectorNets, packed: torch.Tensor,
+                                 seed_boxes: torch.Tensor, seed_valid: torch.Tensor,
+                                 cfg: DetectorConfig, dtype, k: Optional[int] = None):
+    return multiface_step_propagate(nets, to_frames(packed, cfg), seed_boxes, seed_valid, cfg,
+                                    dtype, k=k)
+
+
+def multiface_step_refine(nets: DetectorNets, frames: torch.Tensor, seed_boxes: torch.Tensor,
+                          seed_valid: torch.Tensor, cfg: DetectorConfig, dtype,
+                          rows_per_seed: int):
+    """Seeded multi-face refinement of every row (the stream scheduler's
+    multi-face step between keyframe steps): ``seed_boxes`` (S, T, 4) and
+    ``seed_valid`` (S, T) are each stream's carried track seeds."""
+    sb = seed_boxes.repeat_interleave(rows_per_seed, dim=0)
+    sv = seed_valid.repeat_interleave(rows_per_seed, dim=0)
+    det = refine_faces_multi(nets.mtcnn, frames, sb, sv, cfg.mtcnn, dtype=dtype)
+    boxes, valid = multiface_select(det, cfg.max_tracks)
+    return multiface_tail(nets, frames, boxes, valid, cfg, dtype)
+
+
+def multiface_step_refine_yuv(nets: DetectorNets, packed: torch.Tensor,
+                              seed_boxes: torch.Tensor, seed_valid: torch.Tensor,
+                              cfg: DetectorConfig, dtype, rows_per_seed: int):
+    return multiface_step_refine(nets, to_frames(packed, cfg), seed_boxes, seed_valid, cfg,
+                                 dtype, rows_per_seed)
+
+
+class Steps(NamedTuple):
+    """The frame steps of one kind of analysis, and what a step's outputs
+    found: (B,) faces (single face) or (B, T) (row, track) slots."""
+
+    full: Callable
+    detect: Callable
+    propagate: Callable
+    found: Callable[[object], torch.Tensor]
+
+
+def steps_for(yuv: bool, multi_face: bool) -> Steps:
+    """The steps for I420 or BGR batches, single- or multi-face (looked up
+    when called, so a test can stand in for one)."""
+    if multi_face:
+        return Steps(*((multiface_step_yuv, multiface_detect_yuv, multiface_step_propagate_yuv)
+                       if yuv else (multiface_step, multiface_detect, multiface_step_propagate)),
+                     found=lambda out: out[1])
+    return Steps(*((frame_step_yuv, frame_step_detect_yuv, frame_step_propagate_yuv) if yuv
+                   else (frame_step, frame_step_detect, frame_step_propagate)),
+                 found=lambda out: out.has_face)
 
 
 class Segment(NamedTuple):
@@ -202,7 +371,8 @@ def full_float32():
 
 
 class Detector:
-    """The score path on one device.
+    """The score path (one face per frame) and the multi-face path
+    (``analyze_*_tracks``) on one device.
 
     ``params``: optional mapping net name -> JAX-layout param tree
     (``pnet``, ``rnet``, ``onet``, ``facenet``, ``landmark68``); missing
@@ -279,6 +449,21 @@ class Detector:
                 run_length_threshold=self.config.run_length_threshold,
             )
 
+    def track_fold(self, state: TrackState, boxes: torch.Tensor, valid: torch.Tensor,
+                   emb: torch.Tensor, n_valid) -> Tuple[TrackState, object]:
+        """``track_timeline`` of (S, F, T, ...) multi-face outputs."""
+        with torch.inference_mode():
+            return track_timeline(
+                state, boxes, valid, emb, n_valid,
+                similarity_threshold=self.config.similarity_threshold,
+                run_length_threshold=self.config.run_length_threshold,
+            )
+
+    def track_scores(self, state: TrackState, frame_count: int, fps: int) -> np.ndarray:
+        return track_scores(state, frame_count, fps,
+                            run_length_threshold=self.config.run_length_threshold,
+                            long_video_seconds=self.config.long_video_seconds)
+
     def score(self, flagged_count: int, final_counter: int, total_processed: int,
               frame_count: int, fps: int) -> int:
         return weighted_score(
@@ -297,6 +482,20 @@ class Detector:
         then the V plane), converted on the device."""
         return self._analyze(packed, fps, yuv=True)
 
+    def analyze_frames_tracks(self, frames_bgr: np.ndarray, fps: int):
+        """Multi-face analysis of an in-memory (N, H, W, 3) uint8 BGR frame
+        array: per-track consistency scoring.  Returns (aggregate score,
+        the max over tracks; per-track scores (T,) int32; the final
+        ``TrackState`` of (T, ...) tensors)."""
+        return self._analyze_tracks(frames_bgr, fps, yuv=False)
+
+    def analyze_i420_tracks(self, packed: np.ndarray, fps: int):
+        """``analyze_frames_tracks`` on in-memory packed I420 frames
+        (N, 3H/2, W) uint8, converted on the device (the ingest loop of the
+        JAX ``analyze_video_multiface`` with the decoder replaced by
+        memory)."""
+        return self._analyze_tracks(packed, fps, yuv=True)
+
     def _keyframes(self, cycle: List[Segment], k: int) -> torch.Tensor:
         """Every k-th row of each segment of the cycle, gathered on the
         device into one full-width seed batch (zero rows where the last
@@ -307,36 +506,34 @@ class Detector:
             rows = torch.cat([rows, rows.new_zeros((pad,) + tuple(rows.shape[1:]))])
         return rows
 
-    def _propagate_cycle(self, cycle: List[Segment], k: int, yuv: bool, count: bool):
+    def _propagate_cycle(self, cycle: List[Segment], k: int, steps: Steps, count: bool):
         """One keyframe cycle of k segments: the cascade-only seed step on
         their gathered keyframes, then each segment's propagate step.
         Yields (segment, outputs, seeded, lost, fell_back); with ``count``
         (a host sync per segment) ``seeded``/``lost`` count the segment's
-        seeded frames and those whose refinement found no face, and with
-        ``propagate_fallback`` a segment that lost more than half of them
-        is re-run through the full step."""
-        full, detect, propagate = (
-            (frame_step_yuv, frame_step_detect_yuv, frame_step_propagate_yuv) if yuv
-            else (frame_step, frame_step_detect, frame_step_propagate))
+        seeded frames (multi-face: seeded (row, track) slots) and those
+        whose refinement found no face, and with ``propagate_fallback`` a
+        segment that lost more than half of them is re-run through the full
+        step."""
         bk = self.config.frame_batch // k
-        seed_box, seed_hf = self._run(detect, self._keyframes(cycle, k))
-        sv_host = seed_hf.cpu().numpy() if count else None
+        seed_box, seed_found = self._run(steps.detect, self._keyframes(cycle, k))
+        sv_host = seed_found.cpu().numpy() if count else None
         for j, seg in enumerate(cycle):
             rows = slice(j * bk, (j + 1) * bk)
-            out = self._run(propagate, seg.dev, seed_box[rows], seed_hf[rows], k=k)
+            out = self._run(steps.propagate, seg.dev, seed_box[rows], seed_found[rows], k=k)
             seeded = lost = 0
             fell_back = False
             if count:
-                hf = out.has_face[: seg.n_valid].cpu().numpy()
-                sv = np.repeat(sv_host[rows], k)[: seg.n_valid]
-                seeded, lost = int(sv.sum()), int((sv & ~hf).sum())
+                found = steps.found(out)[: seg.n_valid].cpu().numpy()
+                sv = np.repeat(sv_host[rows], k, axis=0)[: seg.n_valid]
+                seeded, lost = int(sv.sum()), int((sv & ~found).sum())
                 if self.config.propagate_fallback and seeded and lost * 2 > seeded:
-                    out = self._run(full, seg.dev)
+                    out = self._run(steps.full, seg.dev)
                     fell_back = True
                     self.fallback_segments += 1
             yield seg, out, seeded, lost, fell_back
 
-    def _propagate_outputs(self, segments, yuv: bool):
+    def _propagate_outputs(self, segments, steps: Steps):
         """(segment, outputs) with full detection on keyframes only, at the
         fixed interval K: K segments per cycle."""
         k = self._detect_k
@@ -344,30 +541,30 @@ class Detector:
             cycle = list(itertools.islice(segments, k))
             if not cycle:
                 return
-            for seg, out, *_ in self._propagate_cycle(cycle, k, yuv,
+            for seg, out, *_ in self._propagate_cycle(cycle, k, steps,
                                                       self.config.propagate_fallback):
                 yield seg, out
 
-    def _propagate_outputs_auto(self, segments, yuv: bool):
+    def _propagate_outputs_auto(self, segments, steps: Steps):
         """(segment, outputs) with adaptive keyframing: rung 1 is full
         detection per segment and escalates once at least half the valid
         rows hold a face; a rung k > 1 is the fixed-k cycle, after which the
         ladder collapses to 1 if the cycle lost more than half its seeded
-        frames, or doubles (up to ``auto_interval_max``) if it lost at most
-        ``auto_escalate_lost`` of them."""
+        frames (multi-face: slots), or doubles (up to
+        ``auto_interval_max``) if it lost at most ``auto_escalate_lost`` of
+        them."""
         cfg = self.config
         kmax = cfg.auto_interval_max
-        full = frame_step_yuv if yuv else frame_step
         k = 1
         while True:
             if k == 1:
                 seg = next(segments, None)
                 if seg is None:
                     return
-                out = self._run(full, seg.dev)
+                out = self._run(steps.full, seg.dev)
                 self.auto_keyframe_segments += 1
-                hf = out.has_face[: seg.n_valid].cpu().numpy()
-                if seg.n_valid and hf.mean() >= 0.5:
+                n = seg.n_valid
+                if n and steps.found(out)[:n].reshape(n, -1).any(1).cpu().numpy().mean() >= 0.5:
                     k = min(2, kmax)
                 self.auto_interval_current = k
                 yield seg, out
@@ -377,7 +574,7 @@ class Detector:
                 return
             cycle_seeded = cycle_lost = 0
             for seg, out, seeded, lost, fell_back in self._propagate_cycle(
-                    cycle, k, yuv, True):
+                    cycle, k, steps, True):
                 self.auto_refine_segments += 1
                 self.auto_keyframe_segments += fell_back
                 cycle_seeded += seeded
@@ -389,16 +586,29 @@ class Detector:
                 k = min(k * 2, kmax)                    # stable: escalate
             self.auto_interval_current = k
 
-    def _segment_outputs(self, segments, yuv: bool):
+    def _segment_outputs(self, segments, yuv: bool, multi_face: bool = False):
         """(segment, outputs): full detection per segment, the keyframe
         cycles of a fixed K > 1, or the "auto" ladder."""
         segments = iter(segments)
+        steps = steps_for(yuv, multi_face)
         if self._auto_interval:
-            return self._propagate_outputs_auto(segments, yuv)
+            return self._propagate_outputs_auto(segments, steps)
         if self._detect_k > 1:
-            return self._propagate_outputs(segments, yuv)
-        full = frame_step_yuv if yuv else frame_step
-        return ((seg, self._run(full, seg.dev)) for seg in segments)
+            return self._propagate_outputs(segments, steps)
+        return ((seg, self._run(steps.full, seg.dev)) for seg in segments)
+
+    def _segments(self, frames: np.ndarray, sampled: List[int], timings: Dict[str, float]):
+        """The sampled frames in uploaded ``frame_batch`` batches, the last
+        one zero-padded."""
+        b = self.config.frame_batch
+        for s in range(0, len(sampled), b):
+            chunk = sampled[s:s + b]
+            t0 = time.perf_counter()
+            stack = np.zeros((b,) + frames.shape[1:], np.uint8)
+            stack[: len(chunk)] = frames[chunk]
+            dev = torch.from_numpy(stack).to(self.device, non_blocking=True)
+            timings["upload"] = timings.get("upload", 0.0) + time.perf_counter() - t0
+            yield Segment(chunk, dev)
 
     def _analyze(self, frames: np.ndarray, fps: int, *, yuv: bool) -> VideoAnalysis:
         cfg = self.config
@@ -406,20 +616,9 @@ class Detector:
         timings = {"upload": 0.0, "device": 0.0}
         n = frames.shape[0]
         sampled = list(range(0, n, cfg.sample_interval(fps)))
-        b = cfg.frame_batch
         state = init_temporal_state(self.embedding_dim, self.device)
         records: List[FrameRecord] = []
         flagged_total = 0
-
-        def segments():
-            for s in range(0, len(sampled), b):
-                chunk = sampled[s:s + b]
-                t0 = time.perf_counter()
-                stack = np.zeros((b,) + frames.shape[1:], np.uint8)
-                stack[: len(chunk)] = frames[chunk]
-                dev = torch.from_numpy(stack).to(self.device, non_blocking=True)
-                timings["upload"] += time.perf_counter() - t0
-                yield Segment(chunk, dev)
 
         def fetch(chunk, out, res):
             nonlocal flagged_total
@@ -441,7 +640,7 @@ class Detector:
         # host waits on batch N's results (with propagation, a keyframe
         # cycle's batches are all uploaded before its seed step).
         in_flight = None
-        for seg, out in self._segment_outputs(segments(), yuv):
+        for seg, out in self._segment_outputs(self._segments(frames, sampled, timings), yuv):
             res = self.temporal(out, seg.n_valid, state)
             state = res.state
             if in_flight is not None:
@@ -458,3 +657,16 @@ class Detector:
             flagged_count=flagged_total, final_counter=final_counter,
             records=records, timings=timings, yuv_ingest=yuv,
         )
+
+    def _analyze_tracks(self, frames: np.ndarray, fps: int, *, yuv: bool):
+        """Every batch's multi-face outputs folded into one stream's track
+        state on the device; the host waits only for the final scores."""
+        cfg = self.config
+        n = frames.shape[0]
+        sampled = list(range(0, n, cfg.sample_interval(fps)))
+        state = init_track_state(cfg.max_tracks, self.embedding_dim, device=self.device)
+        for seg, (boxes, valid, emb) in self._segment_outputs(
+                self._segments(frames, sampled, {}), yuv, multi_face=True):
+            state, _ = self.track_fold(state, boxes[None], valid[None], emb[None], seg.n_valid)
+        per_track = self.track_scores(state, n, fps)[0]
+        return int(per_track.max(initial=0)), per_track, stream_state(state, 0)

@@ -10,7 +10,8 @@ calls go through kernel K2.  The stage crops go through kernel K3 (one
 integral image per frame step, both crops cut from it), or through kernel
 K5 on the exact crop chain with ``use_fused_crops=1``.
 ``refine_faces`` is the track-propagated entry: stages 2-3 only, seeded
-from a known box per frame.
+from a known box per frame (``refine_faces_multi``: T boxes per frame, the
+multi-face tracks' seeds).
 
 Numeric conventions of the upstream cascade are kept: (x - 127.5) / 128
 normalization, the (2x+1)/scale cell-to-box mapping, stage-1 regression
@@ -236,7 +237,21 @@ def refine_faces(nets: MTCNNNets, frames: torch.Tensor, seed_boxes: torch.Tensor
     descending placeholder scores (tightest first, so the top-k gather
     keeps their order); R-Net and O-Net re-score, refine and can reject
     them.  A frame whose seed is not valid yields no detection."""
-    b = frames.shape[0]
+    return refine_faces_multi(nets, frames, seed_boxes[:, None], seed_valid[:, None], cfg,
+                              dtype=dtype)
+
+
+def refine_faces_multi(nets: MTCNNNets, frames: torch.Tensor, seed_boxes: torch.Tensor,
+                       seed_valid: torch.Tensor, cfg: MTCNNConfig = MTCNNConfig(),
+                       *, dtype=torch.bfloat16) -> Detections:
+    """Track-propagated detection with T seeds per frame (seed_boxes
+    (B, T, 4) f32, seed_valid (B, T) bool; ``refine_faces`` is T = 1):
+    each seed spawns the ``PROPAGATE_SCALES`` candidates, seed-major, a
+    (B, T·C) candidate set with descending placeholder scores, and stages
+    2-3 refine, re-score and cross-suppress them, so candidates of two
+    seeds on one face merge under the per-frame NMS.  Invalid seed slots
+    contribute nothing."""
+    b, t = seed_boxes.shape[:2]
     c = len(PROPAGATE_SCALES)
     sq = rerec(seed_boxes)
     cx = (sq[..., 0] + sq[..., 2]) * 0.5
@@ -246,12 +261,12 @@ def refine_faces(nets: MTCNNNets, frames: torch.Tensor, seed_boxes: torch.Tensor
     for s in PROPAGATE_SCALES:
         half = side * (0.5 * s)
         cands.append(torch.stack([cx - half, cy - half, cx + half, cy + half], dim=-1))
-    boxes = torch.stack(cands, dim=1)                                  # (B, C, 4)
-    valid = seed_valid[:, None].expand(b, c)
-    ranks = 1.0 - 0.01 * torch.arange(c, dtype=torch.float32, device=frames.device)
+    boxes = torch.stack(cands, dim=2).reshape(b, t * c, 4)            # seed-major
+    valid = seed_valid[:, :, None].expand(b, t, c).reshape(b, t * c)
+    ranks = 1.0 - 0.01 * torch.arange(t * c, dtype=torch.float32, device=frames.device)
     scores = torch.where(valid, ranks[None, :], 0.0)
     return _stages23(nets, prep_crop_frames(frames, cfg, dtype), boxes, scores, valid, cfg,
-                     k2=c, k3=c, dtype=dtype)
+                     k2=t * c, k3=t * c, dtype=dtype)
 
 
 def select_primary_face(det: Detections, *, largest: bool = True
