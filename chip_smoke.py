@@ -57,23 +57,41 @@ Phases, in order; any failure raises and exits non-zero:
    the "auto" rung must climb, and the events must be one per pushed
    sampled frame.  Each prints sampled frames/s over all streams, steps,
    keyframe steps and padded rows;
-8. float32 cross-checks of card against CPU: GOLDEN_CONFIG (frame_batch 16,
-   TF32 off) over 16 synthetic 640x360 frames, the propagate path
+8. end to end, file path: a 1080p uncompressed I420 AVI of 128 stable
+   frames at fps 14 (64 sampled frames), written by the port's ``rawavi``
+   writer into a temporary directory.  ``Detector.analyze_video`` at the
+   bf16 defaults (its records must equal ``analyze_i420``'s on the same
+   frames); with an annotated output under the propagate path's thresholds
+   and heads (the output holds every frame, the frames not drawn on
+   byte-equal to the source, a drawn frame different from the source,
+   converted as the writer converts, only near its box outline);
+   ``analyze_video_multiface`` at K=4 with an output; ``python -m
+   truely_tpu_torch analyze`` in its own process (its score equal to
+   ``analyze_video``'s); ``stream_videos`` over 8 readers of the file and
+   ``analyze_videos`` over 8 paths (each equal to the solo run with an
+   output), and ``stream_videos`` at K=4 (the 8 streams equal).
+   K1-K4 must launch in each run and K5 not.  Each prints sampled frames/s
+   and the host timings (decode, upload, device, temporal, encode);
+9. cross-checks of card against CPU: at float32, GOLDEN_CONFIG (frame_batch
+   16, TF32 off) over 16 synthetic 640x360 frames, the propagate path
    (``detect_interval=4``, ``use_fused_crops=1``) and the multi-face path
-   at K=4 over 16 stable ones, and a 2-stream scheduler at K=4;
-9. device times: ``device_ms`` of every kernel form and library call, the
+   at K=4 over 16 stable ones, and a 2-stream scheduler at K=4; at bf16,
+   ``analyze_video`` on a small I420 AVI, held to the bounds of the bf16
+   drift gate (``DRIFT_BOUNDS``);
+10. device times: ``device_ms`` of every kernel form and library call, the
    kernels' own time from torch.profiler over 20 calls, then one batch's
    track fold under torch.profiler (its ATen calls, device kernels, device
    and wall time).  It runs last: once the profiler has traced the card,
    every launch costs the host more for the rest of the process, which
    would slow the phases above.
 
-The line before the last is one JSON object with every kernel's numbers;
+The script's wall time is printed before the last two lines.  The line
+before the last is one JSON object with every kernel's numbers;
 the last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device
 the script exits non-zero and prints no result.  ``--profile DIR`` also
 traces one score-path batch and one K=4 propagate cycle (four batches) with
 ``torch.profiler`` and writes their kernel tables and Chrome traces into
-DIR.  ``--kernels-only`` runs phases 1-3 and 9 and prints no result: copied
+DIR.  ``--kernels-only`` runs phases 1-3 and 10 and prints no result: copied
 into another tree of the port, it times that tree's kernels the same way
 (a tree whose K5 reads a planar copy of the frames gets that copy as two
 forms of K5 with bound 0, one per step).  ``--sweep`` also times K2 at
@@ -89,6 +107,7 @@ import math
 import os
 import subprocess
 import sys
+import tempfile
 import time
 from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
 
@@ -125,8 +144,16 @@ PROP_THRESHOLDS = (0.0, 0.0, 0.0)
 # and the propagate path would only run its fallback.  Its runs scale both
 # regression heads by this factor: refined boxes stay near their candidates.
 PROP_REGRESSION_SCALE = 0.1
-SCORE, PROPAGATE, MULTIFACE, STREAM = "score", "propagate", "multiface", "stream"
-PATHS = (SCORE, PROPAGATE, MULTIFACE, STREAM)
+SCORE, PROPAGATE, MULTIFACE, STREAM, FILE = "score", "propagate", "multiface", "stream", "file"
+PATHS = (SCORE, PROPAGATE, MULTIFACE, STREAM, FILE)
+# The file path: a 1080p uncompressed I420 AVI at fps 14 (sample interval 2,
+# so unsampled frames are skipped, or carried to the writer), 128 frames:
+# 64 sampled frames, two batches of 32; read by 8 streams at once.
+FILE_FPS, FILE_FRAMES, FILE_STREAMS = 14, 128, 8
+# How far from its box's outline a drawn pixel may lie: the 2 px line, and
+# the 2x2 chroma block around a changed pixel.
+OUTLINE_PX = 4
+ROOT = os.path.dirname(os.path.abspath(__file__))
 # Candidate clusters per frame of the refine steps' call forms: the 4
 # candidates around one seed, the 16 around 4 track seeds.
 REFINE_CLUSTERS = {4: 1, 16: 4}
@@ -1272,6 +1299,249 @@ def stream_phase() -> Dict[str, int]:
 
 
 # ---------------------------------------------------------------------------
+# File path
+# ---------------------------------------------------------------------------
+
+
+def write_avi(path: str, packed: np.ndarray, fps: int) -> str:
+    """Packed I420 frames as an uncompressed I420 AVI (the port's writer)."""
+    from truely_tpu_torch.media.rawavi import RawAviWriter
+
+    out = RawAviWriter(path, fps, packed.shape[2], packed.shape[1] * 2 // 3)
+    for p in packed:
+        out.write_i420(p)
+    out.close()
+    return path
+
+
+def compare_exact(label: str, got, want) -> None:
+    """Two analyses of the same frames on the card: records, counters and
+    score equal; otherwise prints by how much and fails."""
+    if got.records == want.records and (got.fake_score, got.flagged_count, got.final_counter) \
+            == (want.fake_score, want.flagged_count, want.final_counter):
+        return
+    d = drift(want.records, got.records) if len(got.records) == len(want.records) else {}
+    box = sim = None
+    if d:
+        box = float(np.abs(np.array([r.box for r in got.records])
+                           - np.array([r.box for r in want.records])).max())
+        sim = float(np.abs(np.array([r.similarity for r in got.records])
+                           - np.array([r.similarity for r in want.records])).max())
+    raise RuntimeError(f"{label}: {len(got.records)} records against {len(want.records)}; "
+                       f"drift {d}; max box diff {box}, max sim diff {sim}; scores "
+                       f"{got.fake_score} / {want.fake_score}, flagged {got.flagged_count} / "
+                       f"{want.flagged_count}, final counter {got.final_counter} / "
+                       f"{want.final_counter}")
+
+
+def near_outline(h: int, w: int, box, m: int) -> np.ndarray:
+    """(h, w) mask of the pixels within ``m`` of the outline of ``box``."""
+    x0, y0, x1, y1 = (int(v) for v in box)
+    ys, xs = np.arange(h)[:, None], np.arange(w)[None, :]
+    on_v = (np.minimum(np.abs(xs - x0), np.abs(xs - x1)) <= m) & (ys >= y0 - m) & (ys <= y1 + m)
+    on_h = (np.minimum(np.abs(ys - y0), np.abs(ys - y1)) <= m) & (xs >= x0 - m) & (xs <= x1 + m)
+    return on_v | on_h
+
+
+def drawn_area(h: int, w: int, box, flagged: bool, frame_index: int, m: int) -> np.ndarray:
+    """(h, w) mask of where ``overlay.annotate_frame`` may draw for one
+    box: within ``m`` of its outline, and with cv2 around its text (the
+    overlay's text, at the overlay's place)."""
+    from truely_tpu_torch.media import overlay
+
+    area = near_outline(h, w, box, m)
+    cv2 = overlay.cv2
+    if cv2 is not None:
+        text, (x, y), scale = ((f"AI Detected - Frame {frame_index}", (10, 30), 1) if flagged
+                               else ("Real Frame", (int(box[0]), int(box[1]) - 10), 0.5))
+        (tw, th), base = cv2.getTextSize(text, cv2.FONT_HERSHEY_SIMPLEX, scale, 2)
+        area[max(0, y - th - m):max(0, y + base + m + 1),
+             max(0, x - m):max(0, x + tw + m + 1)] = True
+    return area
+
+
+def check_output(label: str, out: str, packed: np.ndarray, drawn: Dict[int, tuple],
+                 sampled: List[int]) -> int:
+    """The annotated output: every frame of the source; each frame not
+    drawn on byte-equal to the source picture; a drawn frame (every 8th
+    one is checked) equal to the source converted as the writer converts,
+    except where its boxes are drawn (``drawn_area``).  ``drawn``: frame
+    index -> its (box, flagged) pairs, or None where they are not known
+    (multi-face: then every unsampled frame must be untouched).  Returns
+    the number of frames that changed."""
+    from truely_tpu_torch.media import rawavi
+    from truely_tpu_torch.media.native import i420_to_bgr_host
+
+    reader = rawavi.RawAviReader(out)
+    try:
+        require(reader.frame_count == packed.shape[0],
+                f"{label}: {reader.frame_count} frames written of {packed.shape[0]}")
+        changed = [k for k in range(packed.shape[0])
+                   if not np.array_equal(reader.read(k), packed[k])]
+        if drawn is None:
+            require(set(changed) <= set(sampled), f"{label}: unsampled frames changed: "
+                    f"{sorted(set(changed) - set(sampled))}")
+            return len(changed)
+        require(set(changed) <= set(drawn), f"{label}: frames not drawn on changed: "
+                f"{sorted(set(changed) - set(drawn))}")
+        h, w = packed.shape[1] * 2 // 3, packed.shape[2]
+        for k in sorted(drawn)[::8]:
+            got = i420_to_bgr_host(reader.read(k))
+            want = i420_to_bgr_host(rawavi.bgr_to_i420(i420_to_bgr_host(packed[k])))
+            diff = (got != want).any(axis=-1)
+            near = np.zeros((h, w), bool)
+            for box, flagged in drawn[k]:
+                near |= drawn_area(h, w, box, flagged, k, OUTLINE_PX)
+            require(diff.any(), f"{label}: frame {k} has a box but nothing was drawn")
+            require(not (diff & ~near).any(), f"{label}: frame {k} differs at "
+                    f"{int((diff & ~near).sum())} pixels away from its boxes")
+        return len(changed)
+    finally:
+        reader.close()
+
+
+def file_phase() -> Dict[str, int]:
+    """The file path: ``analyze_video`` score-only, with an annotated
+    output, ``analyze_video_multiface`` with one, the CLI, ``stream_videos``
+    over 8 readers and ``analyze_videos``; returns each kernel's launches
+    summed over the timed runs (the CLI's run in its own process aside)."""
+    from truely_tpu_torch.config import DetectorConfig, MTCNNConfig
+    from truely_tpu_torch.pipeline.batch import analyze_videos
+    from truely_tpu_torch.pipeline.detector import Detector
+    from truely_tpu_torch.pipeline.stream_files import stream_videos
+
+    t_phase = time.perf_counter()
+    packed = stable_i420(FILE_FRAMES, STEP_H, STEP_W, seed=51)
+    sampled = list(range(0, FILE_FRAMES, DetectorConfig().sample_interval(FILE_FPS)))
+    n = len(sampled)
+    mt = MTCNNConfig(thresholds=PROP_THRESHOLDS)
+    total: Dict[str, int] = {}
+
+    def timed(label: str, fn):
+        """``fn()`` with the launch counts set to 0 just before and read
+        just after; K1-K4 must have launched and K5 not."""
+        nonlocal total
+        counters = reset_launches()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_launches(counters)
+        require_launched(launches, f"file {label}", k5=False)
+        log(json.dumps({"path": f"{FILE} {label}", "launches": launches}))
+        total = add_launches(total, launches)
+        return out, wall
+
+    def rate(label: str, frames: int, wall: float, extra: str = "") -> None:
+        log(f"file {label}: {frames} sampled frames in {wall:.4f} s = {frames / wall:.2f} "
+            f"sampled frames/s{extra}")
+
+    def timings(res) -> str:
+        return "; timings " + json.dumps({k: round(v, 4) for k, v in res.timings.items()})
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        clip = write_avi(os.path.join(tmp, "clip.avi"), packed, FILE_FPS)
+        log(f"file: {FILE_FRAMES} frames of {STEP_W}x{STEP_H} I420 at fps {FILE_FPS} made and "
+            f"written ({os.path.getsize(clip) / 1e6:.1f} MB) in "
+            f"{time.perf_counter() - t_phase:.1f} s, the write {time.perf_counter() - t0:.2f} s")
+
+        # Score only, at the bf16 defaults, against analyze_i420 on the same frames.
+        det = Detector(DetectorConfig())
+        det.analyze_video(clip)  # warm-up
+        score_only, wall = timed("score-only", lambda: det.analyze_video(clip))
+        require(score_only.yuv_ingest and score_only.frame_count == FILE_FRAMES
+                and score_only.total_processed == n,
+                f"file score-only: {score_only.frame_count} frames, "
+                f"{score_only.total_processed} sampled, yuv {score_only.yuv_ingest}")
+        t0 = time.perf_counter()
+        in_memory = det.analyze_i420(packed, fps=FILE_FPS)
+        torch.cuda.synchronize()
+        mem_wall = time.perf_counter() - t0
+        compare_exact("file score-only against analyze_i420", score_only, in_memory)
+        rate("score-only", n, wall, f"; records equal to analyze_i420's, which reads "
+             f"{n / mem_wall:.2f} sampled frames/s on the same frames from memory; "
+             f"fake_score {score_only.fake_score}" + timings(score_only))
+
+        # With an output, under thresholds that give every frame a box.
+        det1 = steady_regression(Detector(DetectorConfig(mtcnn=mt)))
+        out = os.path.join(tmp, "out.avi")
+        res, wall = timed("with output", lambda: det1.analyze_video(clip, out))
+        drawn = {r.frame_index: ((r.box, r.flagged),) for r in res.records if r.annotated}
+        require(len(drawn) > n // 2, f"file with output: {len(drawn)} of {n} frames drawn")
+        changed = check_output("file with output", out, packed, drawn, sampled)
+        rate("with output", n, wall, f"; {len(drawn)} frames drawn, {changed} changed, the "
+             f"other {FILE_FRAMES - changed} byte-equal to the source" + timings(res))
+
+        # Multi-face, K=4, 4 tracks, with an output.
+        det = steady_regression(Detector(DetectorConfig(
+            multi_face=True, max_tracks=MAX_TRACKS, detect_interval=4, mtcnn=mt)))
+        (agg, per_track, state), wall = timed(
+            "multi-face K=4", lambda: det.analyze_video_multiface(clip, out))
+        require(int(state.processed.max()) > 0 and 0 <= agg <= 100,
+                f"file multi-face: processed {state.processed.tolist()}, score {agg}")
+        changed = check_output("file multi-face", out, packed, None, sampled)
+        require(changed > 0, "file multi-face: no frame drawn")
+        rate("multi-face K=4", n, wall, f"; active tracks {int(state.active.sum())}/"
+             f"{MAX_TRACKS}; per-track scores {per_track.tolist()}; {changed} frames drawn")
+
+        # The CLI, in its own process, at the defaults.
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "truely_tpu_torch", "analyze", clip,
+                               "--compact"], cwd=ROOT, capture_output=True, text=True,
+                              timeout=600)
+        require(proc.returncode == 0, f"CLI exited {proc.returncode}: {proc.stderr[-2000:]}")
+        payload = json.loads(proc.stdout.strip().splitlines()[-1])
+        want = dict(fakeScore=score_only.fake_score, frameCount=FILE_FRAMES, processedFrames=n,
+                    flaggedFrames=score_only.flagged_count,
+                    suspiciousFrames=score_only.suspicious_frames)
+        require({k: payload[k] for k in want} == want, f"CLI {payload} against {want}")
+        log(f"file CLI: python -m truely_tpu_torch analyze in {time.perf_counter() - t0:.1f} s "
+            f"(its own process): fakeScore {payload['fakeScore']} equal to analyze_video's; "
+            f"timings {json.dumps(payload['timings'])}")
+
+        # 8 streams of the file and the batch API at K=1, each equal to the
+        # solo run with an output above (the same detector settings).
+        key = lambda s: (s.fake_score, s.flagged_count, s.suspicious_frames, s.frame_count)
+        want = (res.fake_score, res.flagged_count, res.suspicious_frames, res.frame_count)
+        stats: dict = {}
+        summaries, wall = timed(f"{FILE_STREAMS} streams K=1", lambda: stream_videos(
+            det1, [clip] * FILE_STREAMS, frames_per_stream=4, scheduler_stats=stats))
+        require(all(key(s) == want and s.processed == n and s.yuv_ingest for s in summaries),
+                f"file streams K=1: {[key(s) for s in summaries]} against the solo run's {want}")
+        rate(f"{FILE_STREAMS} streams K=1", n * FILE_STREAMS, wall,
+             f"; each equal to the solo run (score {res.fake_score}, flagged "
+             f"{res.flagged_count}); p50/p95 lag {summaries[0].p50_lag_s:.4f}/"
+             f"{summaries[0].p95_lag_s:.4f} s; scheduler {json.dumps(stats)}")
+        results, wall = timed(f"batch of {FILE_STREAMS} K=1", lambda: analyze_videos(
+            det1, [clip] * FILE_STREAMS, frames_per_video=4))
+        require(all((r.fake_score, r.flagged_count, r.suspicious_frames, r.frame_count) == want
+                    for r in results), "file batch: results differ from the solo run")
+        rate(f"batch of {FILE_STREAMS} K=1", n * FILE_STREAMS, wall,
+             "; each equal to the solo run")
+
+        # At K=4 a stream refines every row from its carried seed, where a
+        # solo run passes each keyframe's box through: the JAX package's
+        # scheduler makes the same decisions as the port's, and they may
+        # differ from a solo run's (truely_tpu/cli.py, serve
+        # --detect-interval).  So the 8 streams must agree with each other,
+        # and the solo run at K=4 is printed beside them.
+        det4 = steady_regression(Detector(DetectorConfig(detect_interval=4, mtcnn=mt)))
+        solo = det4.analyze_video(clip)
+        stats = {}
+        summaries, wall = timed(f"{FILE_STREAMS} streams K=4", lambda: stream_videos(
+            det4, [clip] * FILE_STREAMS, frames_per_stream=4, scheduler_stats=stats))
+        require(all(key(s) == key(summaries[0]) and s.processed == n for s in summaries),
+                f"file streams K=4: the streams differ: {[key(s) for s in summaries]}")
+        rate(f"{FILE_STREAMS} streams K=4", n * FILE_STREAMS, wall,
+             f"; the 8 equal (score {summaries[0].fake_score}, flagged "
+             f"{summaries[0].flagged_count}); the solo analyze_video at K=4: score "
+             f"{solo.fake_score}, flagged {solo.flagged_count}; scheduler {json.dumps(stats)}")
+    log(f"file phase: {time.perf_counter() - t_phase:.1f} s")
+    return total
+
+
+# ---------------------------------------------------------------------------
 # float32 cross-checks
 # ---------------------------------------------------------------------------
 
@@ -1322,6 +1592,42 @@ def compare_events(label: str, gpu: list, cpu: list) -> None:
     require(box_err <= 1.0 and sim_err <= 2e-4, f"{label}: box err {box_err}, sim err {sim_err}")
 
 
+# The "full fast (default)" row of PERFORMANCE.md's drift table (the bf16
+# defaults against the float32 exact chain, 20 seeded weight sets x 240
+# frames of the bundled clip): the bounds of a bf16 run against another
+# bf16 run, on the CPU (tests/test_torch_analyze_video.py) and on the card.
+DRIFT_BOUNDS = {"selection_flip_rate": 0.858, "has_face_mismatch_rate": 1134 / 4800,
+                "dsim_mean": 0.0171, "dsim_p95": 0.038}
+
+
+def drift(ref: list, got: list) -> dict:
+    """How far ``got``'s frame records drift from ``ref``'s, in the columns
+    of that table: has_face mismatches; selection flips, the frames where
+    both found a face but the boxes overlap with IoU below 0.5, over the
+    frames where both found one; |dsim| over the matched frames (both a
+    face, IoU at least 0.5)."""
+    hf_r = np.array([r.has_face for r in ref])
+    hf_g = np.array([r.has_face for r in got])
+    a = np.array([r.box for r in ref], np.float64).reshape(-1, 4)
+    b = np.array([r.box for r in got], np.float64).reshape(-1, 4)
+    iw = np.clip(np.minimum(a[:, 2], b[:, 2]) - np.maximum(a[:, 0], b[:, 0]), 0, None)
+    ih = np.clip(np.minimum(a[:, 3], b[:, 3]) - np.maximum(a[:, 1], b[:, 1]), 0, None)
+    area = lambda x: (x[:, 2] - x[:, 0]) * (x[:, 3] - x[:, 1])
+    inter = iw * ih
+    iou = inter / np.maximum(area(a) + area(b) - inter, 1e-9)
+    both = hf_r & hf_g
+    flips, matched = both & (iou < 0.5), both & (iou >= 0.5)
+    dsim = np.abs(np.array([r.similarity for r in ref]) - np.array([r.similarity for r in got]))
+    dsim = dsim[matched]
+    return dict(frames=len(ref), both_face=int(both.sum()),
+                has_face_mismatches=int((hf_r != hf_g).sum()),
+                has_face_mismatch_rate=float((hf_r != hf_g).mean()) if len(ref) else 0.0,
+                selection_flips=int(flips.sum()),
+                selection_flip_rate=float(flips.sum() / max(int(both.sum()), 1)),
+                dsim_mean=float(dsim.mean()) if dsim.size else 0.0,
+                dsim_p95=float(np.percentile(dsim, 95)) if dsim.size else 0.0)
+
+
 def xcheck_phase() -> None:
     from truely_tpu_torch.config import DetectorConfig, MTCNNConfig
     from truely_tpu_torch.pipeline.detector import Detector
@@ -1355,6 +1661,21 @@ def xcheck_phase() -> None:
                                      frames_per_stream=4, fps=FPS, yuv=True), content)[0]
         for d in ("cuda", "cpu")))
 
+    # bf16, card against CPU, through analyze_video on a small clip (every
+    # frame a face, thresholds 0): the bounds of the bf16 drift gate.
+    bf16 = DetectorConfig(frame_batch=16, mtcnn=MTCNNConfig(thresholds=PROP_THRESHOLDS))
+    with tempfile.TemporaryDirectory() as tmp:
+        clip = write_avi(os.path.join(tmp, "small.avi"), stable_i420(32, 360, 640, seed=16),
+                         FILE_FPS)
+        gpu, cpu = (steady_regression(Detector(bf16, device=d)).analyze_video(clip)
+                    for d in ("cuda", "cpu"))
+    d = drift(cpu.records, gpu.records)
+    log(f"xcheck bf16 analyze_video card against CPU (16 sampled 640x360 frames): "
+        f"{json.dumps(d)}; bounds {json.dumps(DRIFT_BOUNDS)}; scores {gpu.fake_score} / "
+        f"{cpu.fake_score}")
+    require(d["both_face"] >= 8 and all(d[k] <= v for k, v in DRIFT_BOUNDS.items()),
+            f"bf16 card against CPU: {d} outside {DRIFT_BOUNDS}")
+
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -1366,6 +1687,7 @@ def main(argv=None) -> int:
     ap.add_argument("--sweep", action="store_true",
                     help="also time K2 and K5 at every launch shape they take, after the rest")
     args = ap.parse_args(argv)
+    t_script = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -1373,6 +1695,10 @@ def main(argv=None) -> int:
 
     log(card_line())
     name = torch.cuda.get_device_name(0)
+    from truely_tpu_torch.media import overlay
+
+    log("cv2: " + ("not installed: only uncompressed I420 AVI is read and written"
+                   if overlay.cv2 is None else f"{overlay.cv2.__version__} (boxes carry text)"))
     log(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
 
     t0 = time.perf_counter()
@@ -1389,7 +1715,7 @@ def main(argv=None) -> int:
     launch_floor("cuda")
     if not args.kernels_only:
         launches = {SCORE: e2e_phase(args.profile), PROPAGATE: propagate_phase(args.profile),
-                    MULTIFACE: multiface_phase(), STREAM: stream_phase()}
+                    MULTIFACE: multiface_phase(), STREAM: stream_phase(), FILE: file_phase()}
         xcheck_phase()
     device_phase(forms, rows)
     if not args.kernels_only:
@@ -1417,6 +1743,7 @@ def main(argv=None) -> int:
             entry["prep_launches"] = launches[path][K3_PREP]
             entry["prep_launches_by_path"] = {p: launches[p][K3_PREP] for p in launches}
         kernels.append(entry)
+    log(f"chip_smoke: {time.perf_counter() - t_script:.1f} s of wall time, the build included")
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -92,6 +92,17 @@ class DetectorConfig:
     # With K > 1: re-run full detection on a segment whose refinement lost
     # more than half of its seeded frames (one host sync per segment).
     propagate_fallback: bool = True
+    # Draw the 68-point landmark head's output on annotated frames.
+    draw_landmarks: bool = False
+    # Which frames of the annotated output get boxes: "all" (every sampled
+    # frame with a face, the reference's contract) or "flagged-only" (red
+    # boxes on flagged frames only; the others re-encode from their decoded
+    # I420 planes).  Decisions are the same in both modes.
+    draw_mode: str = "all"
+    # Read files as packed I420 and convert on the device (kernel K1) when
+    # the reader can (media/decode.py: an uncompressed I420 AVI); other
+    # files decode to BGR on the host.  Results are the same either way.
+    yuv_ingest: bool = True
 
     def sample_interval(self, fps: int) -> int:
         return max(1, int(fps / self.sample_hz))

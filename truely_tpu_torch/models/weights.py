@@ -13,7 +13,7 @@ from __future__ import annotations
 
 import math
 import os
-from typing import Dict, Mapping, Optional, Tuple
+from typing import Dict, Mapping, Optional, Set, Tuple
 
 import numpy as np
 import torch
@@ -142,13 +142,17 @@ def load_or_init(name: str, weights_dir: Optional[str] = None) -> Tuple[nn.Modul
 
 
 def load_all(params: Optional[Mapping[str, object]] = None,
-             weights_dir: Optional[str] = None) -> Dict[str, nn.Module]:
+             weights_dir: Optional[str] = None) -> Tuple[Dict[str, nn.Module], Set[str]]:
     """All five nets: from ``params`` (name -> param tree) where given,
-    else from :func:`load_or_init`."""
-    out = {}
+    else from :func:`load_or_init`.  Returns (nets, the names whose weights
+    were given rather than drawn from the seeded init)."""
+    out, given = {}, set()
     for name in NETS:
         if params is not None and name in params:
             out[name] = params_from_numpy(name, params[name])
+            given.add(name)
         else:
-            out[name] = load_or_init(name, weights_dir)[0]
-    return out
+            out[name], loaded = load_or_init(name, weights_dir)
+            if loaded:
+                given.add(name)
+    return out, given

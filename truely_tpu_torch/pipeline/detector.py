@@ -15,18 +15,26 @@ uploaded batches are gathered on the device into one full-width seed batch,
 and the frames between refine the keyframe's box (``refine_faces``).
 
 ``analyze_frames_tracks`` and ``analyze_i420_tracks`` are the multi-face
-counterparts (the JAX ``analyze_video_multiface``): up to ``max_tracks``
-faces per frame are embedded (``multiface_step``) and folded into
-per-track states (``pipeline/tracks.py``), with the same keyframe cycles
-and "auto" ladder (``refine_faces_multi`` between keyframes).  The
-``*_refine`` steps are the stream scheduler's: every row refines its
-stream's carried seeds.
+counterparts: up to ``max_tracks`` faces per frame are embedded
+(``multiface_step``) and folded into per-track states
+(``pipeline/tracks.py``), with the same keyframe cycles and "auto" ladder
+(``refine_faces_multi`` between keyframes).  The ``*_refine`` steps are the
+stream scheduler's: every row refines its stream's carried seeds.
+
+The file entry points, ``analyze_video``, ``analyze_video_multiface`` and
+``run``, read a video through ``media.decode.VideoReader`` (packed I420
+from an uncompressed I420 AVI, BGR through cv2 otherwise) and can write
+the annotated video; annotating and encoding run on a worker thread beside
+the device loop.
 """
 
 from __future__ import annotations
 
 import contextlib
 import itertools
+import os
+import queue
+import threading
 import time
 from dataclasses import dataclass, field
 from typing import Callable, Dict, List, Mapping, NamedTuple, Optional, Tuple
@@ -36,6 +44,10 @@ import torch
 import torch.nn as nn
 
 from truely_tpu_torch.config import DetectorConfig
+from truely_tpu_torch.media.decode import VideoReader
+from truely_tpu_torch.media.encode import VideoWriter
+from truely_tpu_torch.media.native import i420_to_bgr_host
+from truely_tpu_torch.media.overlay import annotate_frame, draw_landmarks
 from truely_tpu_torch.models.weights import load_all
 from truely_tpu_torch.ops.resize import crop_resize_bilinear
 from truely_tpu_torch.ops.temporal import (
@@ -92,6 +104,7 @@ class VideoAnalysis:
     final_counter: int
     records: List[FrameRecord] = field(default_factory=list)
     timings: Dict[str, float] = field(default_factory=dict)
+    output_path: Optional[str] = None
     yuv_ingest: bool = False  # packed I420 converted on the device
 
     @property
@@ -347,14 +360,58 @@ def steps_for(yuv: bool, multi_face: bool) -> Steps:
 
 class Segment(NamedTuple):
     """One uploaded batch: the sampled frame indices of its valid rows and
-    the (B, ...) uint8 device batch (rows past them are zeros)."""
+    the (B, ...) uint8 device batch (rows past them are zeros).  From a
+    file, also the stretch of the video the batch covers: its frames on the
+    host (BGR, or packed I420 with ``frames_i420``; none in YUV mode unless
+    an output is written), their global indices and their count."""
 
     indices: List[int]
     dev: torch.Tensor
+    frames: Tuple[np.ndarray, ...] = ()
+    frame_indices: Tuple[int, ...] = ()
+    n_frames: int = 0
+    frames_i420: bool = False
 
     @property
     def n_valid(self) -> int:
         return len(self.indices)
+
+
+class _AnnotateWorker:
+    """Annotate and encode on a worker thread, beside the device loop.
+
+    The caller's thread makes every torch call and hands the worker numpy
+    arrays it has fetched (``submit``).  A failure inside ``fn`` (disk
+    full, codec error) is kept, the queue drains, and the caller raises
+    the first one after ``shutdown()``: promptly, never a hang."""
+
+    def __init__(self, fn):
+        self._fn = fn
+        self._q: "queue.Queue" = queue.Queue(maxsize=2)
+        self.err: List[BaseException] = []
+        self._t = threading.Thread(target=self._run, daemon=True)
+        self._t.start()
+
+    def _run(self):
+        while True:
+            item = self._q.get()
+            if item is None:
+                return
+            if self.err:
+                continue  # drain what is left after a failure
+            try:
+                self._fn(*item)
+            except BaseException as e:  # raised again by the caller
+                self.err.append(e)
+
+    def submit(self, *item):
+        self._q.put(item)
+
+    def shutdown(self):
+        """Flush and join.  Does not raise (safe in ``finally``); check
+        ``err`` afterwards."""
+        self._q.put(None)
+        self._t.join()
 
 
 @contextlib.contextmanager
@@ -384,13 +441,13 @@ class Detector:
     def __init__(self, config: Optional[DetectorConfig] = None,
                  params: Optional[Mapping[str, object]] = None,
                  device=None, weights_dir: Optional[str] = None):
-        if device is None:
-            if not torch.cuda.is_available():
-                raise RuntimeError("no CUDA device; pass device='cpu' to run on the CPU")
-            device = "cuda"
-        self.device = torch.device(device)
+        self.device = torch.device("cuda" if device is None else device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("no CUDA device; pass device='cpu' to run on the CPU")
         self.config = config or DetectorConfig()
         cfg = self.config
+        if cfg.draw_mode not in ("all", "flagged-only"):
+            raise ValueError(f"draw_mode must be 'all' or 'flagged-only', got {cfg.draw_mode!r}")
         # detect_interval: a fixed K (self._detect_k) or "auto" (None).
         self._auto_interval = cfg.detect_interval == "auto"
         if self._auto_interval:
@@ -418,7 +475,10 @@ class Detector:
         # Segments that ``propagate_fallback`` re-ran through the full step.
         self.fallback_segments = 0
         self.dtype = getattr(torch, self.config.compute_dtype)
-        nets = {name: m.to(self.device) for name, m in load_all(params, weights_dir).items()}
+        nets, given = load_all(params, weights_dir)
+        # False: FaceNet is the seeded init, and its scores mean nothing.
+        self.facenet_pretrained = "facenet" in given
+        nets = {name: m.to(self.device) for name, m in nets.items()}
         self.nets = DetectorNets(
             mtcnn=MTCNNNets(nets["pnet"], nets["rnet"], nets["onet"]),
             facenet=nets["facenet"], landmark=nets["landmark68"],
@@ -670,3 +730,233 @@ class Detector:
             state, _ = self.track_fold(state, boxes[None], valid[None], emb[None], seg.n_valid)
         per_track = self.track_scores(state, n, fps)[0]
         return int(per_track.max(initial=0)), per_track, stream_state(state, 0)
+
+    # ------------------------------------------------------------------
+    # Files
+
+    def _file_segments(self, reader: VideoReader, timings: Dict[str, float]):
+        """The reader's segments, uploaded: the time spent waiting on the
+        decode thread goes to ``timings["decode"]``, the copies to
+        ``timings["upload"]``."""
+        it = reader.segments(self.config.sample_interval(reader.meta.fps),
+                             self.config.frame_batch)
+        try:
+            while True:
+                t0 = time.perf_counter()
+                seg = next(it, None)
+                t1 = time.perf_counter()
+                timings["decode"] += t1 - t0
+                if seg is None:
+                    return
+                dev = torch.from_numpy(seg.sampled).to(self.device, non_blocking=True)
+                timings["upload"] += time.perf_counter() - t1
+                yield Segment(seg.sampled_indices, dev, tuple(seg.frames),
+                              tuple(seg.frame_indices), seg.n_frames, seg.frames_i420)
+        finally:
+            it.close()
+
+    def analyze_video(self, input_path: str, output_path: Optional[str] = None) -> VideoAnalysis:
+        """Analysis of a video file, and with ``output_path`` the annotated
+        video (the reference's ``run()``, server/model.py:11-95).  Timings,
+        host seconds: ``decode`` (waiting on the decode thread),
+        ``upload``, ``device`` (issuing the frame steps and waiting on their
+        results), ``temporal`` (issuing the fold), ``encode`` (annotating
+        and writing, on the worker thread when there is an output),
+        ``total``."""
+        cfg = self.config
+        rgb = not cfg.reference_compat
+        t_start = time.perf_counter()
+        timings = {"decode": 0.0, "upload": 0.0, "device": 0.0, "temporal": 0.0, "encode": 0.0}
+        # With an output, every frame's packed picture comes along, so that
+        # the frames not drawn on re-encode without a colour conversion.
+        with VideoReader(input_path, rgb=rgb, yuv=cfg.yuv_ingest,
+                         host_frames=output_path is not None) as reader:
+            meta = reader.meta
+            writer = (VideoWriter(output_path, meta.fps, meta.width, meta.height)
+                      if output_path else None)
+            state = init_temporal_state(self.embedding_dim, self.device)
+            records: List[FrameRecord] = []
+            totals = {"frames": 0, "processed": 0, "flagged": 0}
+
+            def fetch_results(out, res):
+                # Everything the records and the annotator need, in one wait.
+                t1 = time.perf_counter()
+                got = tuple(t.cpu().numpy() for t in (
+                    out.crop_bounds, res.has_face, res.annotated, res.flagged, res.similarity,
+                    res.counter))
+                lmks = out.landmarks68.cpu().numpy() if cfg.draw_landmarks else None
+                timings["device"] += time.perf_counter() - t1
+                return got + (lmks,)
+
+            def finish_segment(seg: Segment, fetched):
+                bounds, has_face, annotated, flagged, sims, counters, lmks = fetched
+                totals["flagged"] += int(np.sum(flagged[: seg.n_valid]))
+                totals["processed"] += seg.n_valid
+                totals["frames"] += seg.n_frames
+                t2 = time.perf_counter()
+                ann = {gi: k for k, gi in enumerate(seg.indices)}
+                for j, gi in enumerate(seg.frame_indices):
+                    frame = seg.frames[j] if seg.frames else None
+                    k = ann.get(gi)
+                    px = None  # interleaved pixels, only for a frame drawn on
+                    if k is not None:
+                        records.append(FrameRecord(
+                            frame_index=gi, has_face=bool(has_face[k]),
+                            box=tuple(float(v) for v in bounds[k]),
+                            annotated=bool(annotated[k]), flagged=bool(flagged[k]),
+                            similarity=float(sims[k]), counter=int(counters[k])))
+                        draw = annotated[k] and (cfg.draw_mode != "flagged-only" or flagged[k])
+                        if writer and draw:
+                            px = i420_to_bgr_host(frame, rgb=rgb) if seg.frames_i420 else frame
+                            annotate_frame(px, bounds[k], flagged=bool(flagged[k]),
+                                           frame_index=gi, rgb=rgb)
+                            if lmks is not None:
+                                x0, y0, x1, y1 = bounds[k]
+                                pts = (lmks[k] * np.asarray([max(x1 - x0, 1), max(y1 - y0, 1)])
+                                       + np.asarray([x0, y0]))
+                                draw_landmarks(px, pts, rgb=rgb)
+                    if writer:
+                        if px is None and seg.frames_i420:
+                            writer.write_i420(frame)   # as decoded, no conversion
+                        else:
+                            px = frame if px is None else px
+                            # The writers take BGR; corrected mode decodes RGB.
+                            writer.write(px if cfg.reference_compat
+                                         else np.ascontiguousarray(px[..., ::-1]))
+                timings["encode"] += time.perf_counter() - t2
+
+            # With an output, annotate and encode run on a worker thread;
+            # score-only runs do the little host work in line.
+            wt = _AnnotateWorker(finish_segment) if writer is not None else None
+            emit = wt.submit if wt is not None else finish_segment
+            try:
+                # One-deep pipeline: batch N+1 is uploaded and enqueued
+                # before the host waits on batch N's results.
+                in_flight = None
+                outputs = self._segment_outputs(self._file_segments(reader, timings),
+                                                reader.yuv_active)
+                while True:
+                    t0 = time.perf_counter()
+                    io = timings["decode"] + timings["upload"]
+                    item = next(outputs, None)
+                    # Issuing the steps: the time in next() beside the
+                    # reader's and the upload's.
+                    timings["device"] += (time.perf_counter() - t0
+                                          - (timings["decode"] + timings["upload"] - io))
+                    # A failed writer stops decoding and uploading at once.
+                    if item is None or (wt is not None and wt.err):
+                        break
+                    seg, out = item
+                    t0 = time.perf_counter()
+                    res = self.temporal(out, seg.n_valid, state)
+                    timings["temporal"] += time.perf_counter() - t0
+                    state = res.state
+                    if in_flight is not None:
+                        emit(in_flight[0], fetch_results(*in_flight[1:]))
+                    in_flight = (seg, out, res)
+                if in_flight is not None:
+                    emit(in_flight[0], fetch_results(*in_flight[1:]))
+            finally:
+                if wt is not None:
+                    wt.shutdown()
+                if writer:
+                    writer.close()
+            if wt is not None and wt.err:
+                raise wt.err[0]
+            yuv_ingest = reader.yuv_active
+
+        final_counter = int(state.counter)
+        timings["total"] = time.perf_counter() - t_start
+        return VideoAnalysis(
+            fake_score=self.score(totals["flagged"], final_counter, totals["processed"],
+                                  totals["frames"], meta.fps),
+            frame_count=totals["frames"], fps=meta.fps, total_processed=totals["processed"],
+            flagged_count=totals["flagged"], final_counter=final_counter, records=records,
+            timings=timings, output_path=output_path, yuv_ingest=yuv_ingest,
+        )
+
+    def analyze_video_multiface(self, input_path: str, output_path: Optional[str] = None):
+        """Multi-face analysis of a video file: every tracked face gets its
+        own consistency score and, with ``output_path``, its red or green
+        box.  Returns (aggregate score, the max over tracks; per-track
+        scores (T,) int32; the final ``TrackState`` of (T, ...) tensors)."""
+        cfg = self.config
+        rgb = not cfg.reference_compat
+        t = cfg.max_tracks
+        timings = {"decode": 0.0, "upload": 0.0}
+        with VideoReader(input_path, rgb=rgb, yuv=cfg.yuv_ingest,
+                         host_frames=output_path is not None) as reader:
+            meta = reader.meta
+            writer = (VideoWriter(output_path, meta.fps, meta.width, meta.height)
+                      if output_path else None)
+            state = init_track_state(t, self.embedding_dim, device=self.device)
+            frame_count = 0
+
+            def finish_segment(seg: Segment, fetched):
+                t_boxes, t_upd, t_flag = fetched
+
+                def drawn(k, i):
+                    return bool(t_upd[k, i]) and (cfg.draw_mode != "flagged-only"
+                                                  or bool(t_flag[k, i]))
+
+                ann = {gi: k for k, gi in enumerate(seg.indices)}
+                for gi, frame in zip(seg.frame_indices, seg.frames):
+                    k = ann.get(gi)
+                    tracks = [i for i in range(t) if drawn(k, i)] if k is not None else []
+                    if not tracks and seg.frames_i420:
+                        writer.write_i420(frame)   # as decoded, no conversion
+                        continue
+                    px = i420_to_bgr_host(frame, rgb=rgb) if seg.frames_i420 else frame
+                    for i in tracks:
+                        annotate_frame(px, t_boxes[k, i], flagged=bool(t_flag[k, i]),
+                                       frame_index=gi, rgb=rgb)
+                    writer.write(px if cfg.reference_compat
+                                 else np.ascontiguousarray(px[..., ::-1]))
+
+            def fetch(outs):
+                return tuple(x[0].cpu().numpy() for x in (
+                    outs.track_box, outs.track_updated, outs.track_flagged))
+
+            # The structure of analyze_video: a one-deep pipeline feeding an
+            # encode worker.
+            wt = _AnnotateWorker(finish_segment) if writer is not None else None
+            try:
+                in_flight = None
+                for seg, (boxes, valid, emb) in self._segment_outputs(
+                        self._file_segments(reader, timings), reader.yuv_active,
+                        multi_face=True):
+                    if wt is not None and wt.err:
+                        break
+                    state, outs = self.track_fold(state, boxes[None], valid[None], emb[None],
+                                                  seg.n_valid)
+                    frame_count += seg.n_frames
+                    if wt is None:
+                        continue
+                    if in_flight is not None:
+                        wt.submit(in_flight[0], fetch(in_flight[1]))
+                    in_flight = (seg, outs)
+                if wt is not None and in_flight is not None:
+                    wt.submit(in_flight[0], fetch(in_flight[1]))
+            finally:
+                if wt is not None:
+                    wt.shutdown()
+                if writer:
+                    writer.close()
+            if wt is not None and wt.err:
+                raise wt.err[0]
+        per_track = self.track_scores(state, frame_count, meta.fps)[0]
+        return int(per_track.max(initial=0)), per_track, stream_state(state, 0)
+
+    def run(self, video_path_one: str, video_path_two: str) -> int:
+        """The reference's ``run()`` (server/model.py): the 0-100 fake
+        score of ``video_path_one``, with the annotated video written to
+        ``video_path_two``; 0 for a missing, empty or unreadable file.
+        With ``config.multi_face`` the score is the max over face tracks."""
+        if not os.path.exists(video_path_one) or os.path.getsize(video_path_one) == 0:
+            return 0
+        try:
+            if self.config.multi_face:
+                return self.analyze_video_multiface(video_path_one, video_path_two)[0]
+            return self.analyze_video(video_path_one, video_path_two).fake_score
+        except IOError:
+            return 0
