@@ -14,13 +14,14 @@ Phases, in order; any failure raises and exits non-zero:
    at q=1), and timed beside the plain version, a PyTorch library call
    where one computes the same function, and its bound: ``ms`` is the
    CUDA-event time of back-to-back calls (the issue rate), ``host_ms``
-   the host's cost of issuing a call (``device_ms`` comes in phase 9).
+   the host's cost of issuing a call (``device_ms`` comes in phase 11).
    Each call form belongs to the paths that make it: score (bf16
    defaults), propagate (its keyframe step and its refine step),
    multiface (4 tracks: K4 at K=4, the refine step's K2 and K5 at K=16)
    and stream (the scheduler's full and refine steps: K3 at K=4 and K=16,
-   q=4), or to none (forms kept for comparison).  K3's prep (the integral
-   image, once per frame step) is a form of its own with bound 0; its crop
+   q=4); the file and serve paths make the score step's forms; or to
+   none (forms kept for comparison).  K3's prep (the integral image, once
+   per frame step) is a form of its own with bound 0; its crop
    forms cut from a prepared integral.  Edge forms of K2 (chains deeper
    than max_rounds, tied scores, K of 1, 37 and 100, every slot invalid,
    IoUs at the threshold float and its neighbours) and of K5 (crops
@@ -72,13 +73,31 @@ Phases, in order; any failure raises and exits non-zero:
    output), and ``stream_videos`` at K=4 (the 8 streams equal).
    K1-K4 must launch in each run and K5 not.  Each prints sampled frames/s
    and the host timings (decode, upload, device, temporal, encode);
-9. cross-checks of card against CPU: at float32, GOLDEN_CONFIG (frame_batch
+9. end to end, serve path: 8 prefixes of the file path's clip (128 down
+   to 100 frames), at the bf16 defaults on nets that find faces at the
+   default thresholds (``serve_weights``, a weights directory), after
+   ``Detector.warmup`` at 1080p; score-only runs on this thread and on new
+   threads, alternating; then the port's ``TruelyServer`` on a real
+   socket, each request given its own hard link of a clip (the server
+   deletes its inputs): ``POST /analyze-video`` (fakeScore, not 0, equal
+   to ``det.run``'s, the ``.avi`` output another file, byte-equal to
+   ``det.run``'s output, drawn where the solo run draws and byte-equal to
+   the source elsewhere), ``/view`` and a 1024-byte Range of ``/video``,
+   ``/analyze-combined``, 8 ``/jobs/analyze-video`` jobs, one on each
+   clip, queued behind a gate job (one group, each equal to its clip's
+   solo run, each output checked as above), 8 sync requests in a row, and
+   ``/metrics``; K1-K4 must launch in each and K5 not.  Then ``python -m
+   truely_tpu_torch serve --weights`` in its own process with ``--warmup
+   1080x1920`` (seconds until ``/health`` reports it done, and its first
+   request) and without (its first request: the cold cost); both answer
+   with the in-process fakeScore;
+10. cross-checks of card against CPU: at float32, GOLDEN_CONFIG (frame_batch
    16, TF32 off) over 16 synthetic 640x360 frames, the propagate path
    (``detect_interval=4``, ``use_fused_crops=1``) and the multi-face path
    at K=4 over 16 stable ones, and a 2-stream scheduler at K=4; at bf16,
    ``analyze_video`` on a small I420 AVI, held to the bounds of the bf16
    drift gate (``DRIFT_BOUNDS``);
-10. device times: ``device_ms`` of every kernel form and library call, the
+11. device times: ``device_ms`` of every kernel form and library call, the
    kernels' own time from torch.profiler over 20 calls, then one batch's
    track fold under torch.profiler (its ATen calls, device kernels, device
    and wall time).  It runs last: once the profiler has traced the card,
@@ -91,7 +110,7 @@ the last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device
 the script exits non-zero and prints no result.  ``--profile DIR`` also
 traces one score-path batch and one K=4 propagate cycle (four batches) with
 ``torch.profiler`` and writes their kernel tables and Chrome traces into
-DIR.  ``--kernels-only`` runs phases 1-3 and 10 and prints no result: copied
+DIR.  ``--kernels-only`` runs phases 1-3 and 11 and prints no result: copied
 into another tree of the port, it times that tree's kernels the same way
 (a tree whose K5 reads a planar copy of the frames gets that copy as two
 forms of K5 with bound 0, one per step).  ``--sweep`` also times K2 at
@@ -102,12 +121,14 @@ device times.
 from __future__ import annotations
 
 import argparse
+import itertools
 import json
 import math
 import os
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
 
@@ -144,12 +165,30 @@ PROP_THRESHOLDS = (0.0, 0.0, 0.0)
 # and the propagate path would only run its fallback.  Its runs scale both
 # regression heads by this factor: refined boxes stay near their candidates.
 PROP_REGRESSION_SCALE = 0.1
-SCORE, PROPAGATE, MULTIFACE, STREAM, FILE = "score", "propagate", "multiface", "stream", "file"
-PATHS = (SCORE, PROPAGATE, MULTIFACE, STREAM, FILE)
+SCORE, PROPAGATE, MULTIFACE, STREAM, FILE, SERVE = (
+    "score", "propagate", "multiface", "stream", "file", "serve")
+PATHS = (SCORE, PROPAGATE, MULTIFACE, STREAM, FILE, SERVE)
 # The file path: a 1080p uncompressed I420 AVI at fps 14 (sample interval 2,
 # so unsampled frames are skipped, or carried to the writer), 128 frames:
 # 64 sampled frames, two batches of 32; read by 8 streams at once.
 FILE_FPS, FILE_FRAMES, FILE_STREAMS = 14, 128, 8
+# The serve phase's P-, R- and O-Net, saved into a weights directory that
+# the in-process server and the CLI's servers both load (``--weights``), so
+# that at the default thresholds the sampled frames carry faces, frames
+# flag and the scores are not 0.  Each face head's logits are scaled by
+# SERVE_HEAD_SCALE (a power of two, so exactly) and its face logit raised
+# by SERVE_FACE_SHIFT: the candidates keep the order of their scores and
+# pass every default threshold, as under PROP_THRESHOLDS.  The box
+# regressions are scaled as steady_regression scales them.
+SERVE_HEAD_SCALE, SERVE_FACE_SHIFT = 1 / 16, 4.0
+# The serve phase's clips: prefixes of the file path's clip, one length
+# for each of its 8 jobs, so that each job's output has a frame count of
+# its own.  The 128-frame clip's flagged frames lie past its 88th frame
+# (on the card: prefixes of 96 frames and fewer score 2 or 0), so the
+# prefixes stay above 96.
+SERVE_LENGTHS = tuple(FILE_FRAMES - 4 * i for i in range(FILE_STREAMS))
+# Score-only analyses on this thread and on a new thread, alternating.
+SERVE_THREAD_PAIRS = 4
 # How far from its box's outline a drawn pixel may lie: the 2 px line, and
 # the 2x2 chroma block around a changed pixel.
 OUTLINE_PX = 4
@@ -570,13 +609,13 @@ def kernel_forms(device) -> List[Form]:
     # bytes are no work the crops must do) and a crop per stage crop, timed
     # from a prepared integral so that the prep counts once per step.
     integrals = {}
-    for quant, paths in ((4, (SCORE, MULTIFACE, STREAM)), (1, ())):
+    for quant, paths in ((4, (SCORE, MULTIFACE, STREAM, FILE, SERVE)), (1, ())):
         integrals[quant] = resize.crop_area_integral(frames, quant)
         forms.append(Form(
             "crop_resize_area", f"prep q={quant}", paths,
             lambda q=quant: resize.crop_area_integral(frames, q),
             lambda q=quant: resize.crop_area_integral_plain(frames, q), None, nbytes=0, ops=0))
-    full_q4 = (SCORE, MULTIFACE, STREAM)
+    full_q4 = (SCORE, MULTIFACE, STREAM, FILE, SERVE)
     for quant, k, o, paths in ((4, 64, 24, full_q4), (4, 32, 48, full_q4),
                                (4, 4, 24, (STREAM,)), (4, 4, 48, (STREAM,)),
                                (4, 16, 24, (STREAM,)), (4, 16, 48, (STREAM,)),
@@ -644,7 +683,7 @@ def kernel_forms(device) -> List[Form]:
         idx = torch.cat([a.floor(), a.floor() + 1], -1).clamp(0, size - 1).flatten(0, 1)
         return [torch.unique(r).numel() for r in idx]
 
-    for k, paths in ((1, (SCORE, PROPAGATE, STREAM)), (4, (MULTIFACE, STREAM))):
+    for k, paths in ((1, (SCORE, PROPAGATE, STREAM, FILE, SERVE)), (4, (MULTIFACE, STREAM))):
         bi = random_boxes(g_multi if k > 1 else g, b, k, h, w, device, clusters=k).to(torch.int32)
         bounds = torch.stack([bi[..., 0].clamp_min(0), bi[..., 1].clamp_min(0),
                               bi[..., 2].clamp_max(w), bi[..., 3].clamp_max(h)], -1)
@@ -1542,6 +1581,329 @@ def file_phase() -> Dict[str, int]:
 
 
 # ---------------------------------------------------------------------------
+# Serve path
+# ---------------------------------------------------------------------------
+
+
+def http_call(url: str, body: Optional[dict] = None, headers: Optional[dict] = None,
+              timeout: float = 120.0) -> Tuple[int, dict, bytes]:
+    """(status, headers, body) of a GET, or of a POST of ``body`` as JSON."""
+    import urllib.request
+
+    data = None if body is None else json.dumps(body).encode()
+    req = urllib.request.Request(url, data=data, headers=headers or {},
+                                 method="GET" if body is None else "POST")
+    with urllib.request.urlopen(req, timeout=timeout) as r:
+        return r.status, dict(r.headers), r.read()
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def cli_server(tmp: str, name: str, *extra: str):
+    """``python -m truely_tpu_torch serve`` in its own process on a free
+    port, its output into ``tmp``; returns (process, base URL, log path)."""
+    port = free_port()
+    log_path = os.path.join(tmp, f"{name}.log")
+    with open(log_path, "w") as out:
+        proc = subprocess.Popen([sys.executable, "-m", "truely_tpu_torch", "serve", "--host",
+                                 "127.0.0.1", "--port", str(port), *extra], cwd=ROOT,
+                                stdout=out, stderr=subprocess.STDOUT)
+    return proc, f"http://127.0.0.1:{port}", log_path
+
+
+def wait_health(proc, url: str, log_path: str, done, timeout: float = 180.0) -> dict:
+    """Poll ``/health`` until ``done(payload)``; fails if the server exits
+    or the time runs out."""
+    deadline = time.perf_counter() + timeout
+    while time.perf_counter() < deadline:
+        if proc.poll() is not None:
+            break
+        try:
+            payload = json.loads(http_call(url + "/health", timeout=10)[2])
+            if done(payload):
+                return payload
+        except OSError:
+            pass
+        time.sleep(0.1)
+    with open(log_path) as f:
+        tail = f.read()[-3000:]
+    raise RuntimeError(f"serve: {url} not ready (exit {proc.poll()}): {tail}")
+
+
+def stop(proc) -> None:
+    proc.terminate()
+    try:
+        proc.wait(timeout=30)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait(timeout=30)
+
+
+def serve_weights(out_dir: str) -> str:
+    """Write the serve phase's P-, R- and O-Net (SERVE_HEAD_SCALE) into
+    ``out_dir`` as the ``.npz`` files that ``--weights`` reads; returns it."""
+    from truely_tpu_torch.models import weights
+
+    heads = {"pnet": ("conv4_1", None), "rnet": ("dense5_1", "dense5_2"),
+             "onet": ("dense6_1", "dense6_2")}
+    for name, (face, regression) in heads.items():
+        net = weights.init_params(name)
+        with torch.no_grad():
+            head = getattr(net, face)
+            head.weight.mul_(SERVE_HEAD_SCALE)
+            head.bias.mul_(SERVE_HEAD_SCALE)
+            head.bias[1] += SERVE_FACE_SHIFT
+            if regression:
+                getattr(net, regression).weight.mul_(PROP_REGRESSION_SCALE)
+                getattr(net, regression).bias.mul_(PROP_REGRESSION_SCALE)
+        weights.save_params(os.path.join(out_dir, f"{name}.npz"), net)
+    return out_dir
+
+
+def serve_phase() -> Dict[str, int]:
+    """The serve path: the port's ``TruelyServer`` over a real socket, then
+    ``python -m truely_tpu_torch serve`` in its own process, warmed and
+    cold, all on the nets of ``serve_weights``; returns each kernel's
+    launches summed over the in-process requests."""
+    import filecmp
+
+    from truely_tpu_torch.config import DetectorConfig
+    from truely_tpu_torch.pipeline.detector import Detector
+    from truely_tpu_torch.serve.app import TruelyServer
+    from truely_tpu_torch.serve.http import make_server, serve_forever_in_thread
+
+    t_phase = time.perf_counter()
+    try:
+        import httpx
+        log(f"serve: httpx {httpx.__version__} imports")
+    except ImportError:
+        log("serve: httpx does not import (the fact-check agents are unavailable; every video "
+            "endpoint works without them)")
+    packed = stable_i420(FILE_FRAMES, STEP_H, STEP_W, seed=51)
+    total: Dict[str, int] = {}
+
+    with tempfile.TemporaryDirectory() as tmp:
+        wdir = serve_weights(tmp)
+        clips = [write_avi(os.path.join(tmp, f"src{n}.avi"), packed[:n], FILE_FPS)
+                 for n in SERVE_LENGTHS]
+        src = clips[0]
+        names = itertools.count()
+
+        def link(i: int) -> str:
+            """A new name of clip ``i``: the server deletes the inputs it
+            is handed (they lie in the temp dir)."""
+            path = os.path.join(tmp, f"in{next(names)}.avi")
+            os.link(clips[i], path)
+            return path
+
+        det = Detector(DetectorConfig(), weights_dir=wdir)  # the bf16 defaults
+        _, warm_s = sync_ms(lambda: det.warmup(STEP_H, STEP_W))
+        # Each clip's solo analysis: its score, its sampled frames and the
+        # frames its output is drawn on.
+        solo = [det.analyze_video(c) for c in clips]
+        wants = [r.fake_score for r in solo]
+        sampled = [r.total_processed for r in solo]
+        drawn = [{r.frame_index: ((r.box, r.flagged),) for r in res.records if r.annotated}
+                 for res in solo]
+        require(all(w > 0 for w in wants) and all(drawn),
+                f"serve: solo scores {wants}, drawn frames {[len(d) for d in drawn]}")
+        want, n = wants[0], sampled[0]
+        solo_out = os.path.join(tmp, "solo_out.avi")
+        t0 = time.perf_counter()
+        got = det.run(src, solo_out)
+        run_wall = time.perf_counter() - t0
+        require(got == want, f"serve: det.run gave {got}, analyze_video {want}")
+        # The server runs each request on a thread of its own.
+        here, new = [], []
+        for _ in range(SERVE_THREAD_PAIRS):
+            here.append(det.analyze_video(src).timings)
+            box: list = []
+            worker = threading.Thread(target=lambda: box.append(det.analyze_video(src).timings))
+            worker.start()
+            worker.join()
+            new.append(box[0])
+        log(f"serve: Detector.warmup({STEP_H}, {STEP_W}) in this process (after the earlier "
+            f"phases) {warm_s / 1e3:.4f} s; solo scores of the {FILE_STREAMS} clips "
+            f"({', '.join(map(str, SERVE_LENGTHS))} frames) {wants}; det.run with an output: "
+            f"{n} sampled frames in {run_wall:.4f} s = {n / run_wall:.2f} sampled frames/s, "
+            f"{len(drawn[0])} frames drawn")
+        for label, runs in (("this thread", here), ("a new thread", new)):
+            log(f"serve: score-only analyze_video on {label}, alternating: total s "
+                f"{[round(t['total'], 4) for t in runs]}, device s "
+                f"{[round(t['device'], 4) for t in runs]}")
+        app = TruelyServer(detector=det)
+        httpd = make_server(app.router, "127.0.0.1", 0)
+        serve_forever_in_thread(httpd)
+        url = f"http://127.0.0.1:{httpd.server_address[1]}"
+
+        def counted(label: str, fn):
+            """``fn()`` with the launch counts set to 0 just before and read
+            just after; K1-K4 must have launched and K5 not."""
+            nonlocal total
+            counters = reset_launches()
+            t0 = time.perf_counter()
+            out = fn()
+            wall = time.perf_counter() - t0
+            launches = read_launches(counters)
+            require_launched(launches, f"serve {label}", k5=False)
+            log(json.dumps({"path": f"{SERVE} {label}", "launches": launches}))
+            total = add_launches(total, launches)
+            return out, wall
+
+        def analyze(i: int = 0, route: str = "/analyze-video") -> Tuple[dict, str]:
+            """One request on clip ``i``; its fakeScore must equal the
+            clip's solo score.  Returns (payload, the stored output path)."""
+            path = link(i)
+            status, _, raw = http_call(url + route, {"videoPath": path})
+            payload = json.loads(raw)
+            require(status == 200 and payload["fakeScore"] == wants[i],
+                    f"serve {route} clip {i}: {status} {payload}, solo {wants[i]}")
+            out = app.store.get(payload["resultId"])["output_path"]
+            require(out != path and out.endswith("_output.avi"),
+                    f"serve {route}: output {out} for input {path}")
+            return payload, out
+
+        def check(label: str, i: int, out: str) -> int:
+            """Clip ``i``'s output: its frames, drawn where the solo run
+            draws and byte-equal to the source elsewhere."""
+            changed = check_output(label, out, packed[:SERVE_LENGTHS[i]], drawn[i], [])
+            require(changed > 0, f"{label}: no frame drawn")
+            return changed
+
+        try:
+            (payload, out), wall = counted("sync", analyze)
+            changed = check("serve sync", 0, out)
+            require(filecmp.cmp(out, solo_out, shallow=False),
+                    "serve sync: the output differs from det.run's")
+            log(f"serve sync /analyze-video: {n} sampled frames in {wall:.4f} s (POST to response) "
+                f"= {n / wall:.2f} sampled frames/s; fakeScore {payload['fakeScore']} equal to "
+                f"det.run's; output {os.path.basename(out)} byte-equal to det.run's, "
+                f"{changed} frames drawn")
+            rid = payload["resultId"]
+            status, _, raw = http_call(f"{url}/view/{rid}")
+            require(status == 200 and f"{want}" in raw.decode(), f"serve /view: {status}")
+            status, headers, raw = http_call(f"{url}/video/{rid}", headers={"Range": "bytes=0-1023"})
+            with open(out, "rb") as f:
+                head = f.read(1024)
+            require(status == 206 and raw == head and headers["Content-Type"] == "video/x-msvideo"
+                    and headers["Content-Range"] == f"bytes 0-1023/{os.path.getsize(out)}",
+                    f"serve /video Range: {status} {headers}")
+            os.unlink(out)
+            os.unlink(solo_out)
+            (payload, out), _ = counted("combined", lambda: analyze(0, "/analyze-combined"))
+            require(payload["newsSummary"] == "No audio content provided for analysis",
+                    f"serve /analyze-combined: {payload}")
+            os.unlink(out)
+
+            # 8 jobs, one on each clip, queued behind a gate job run as one group.
+            gate = threading.Event()
+            app.jobs.submit("gate", lambda: gate.wait(300) and {})
+            ids = []
+            for i in range(FILE_STREAMS):
+                status, _, raw = http_call(url + "/jobs/analyze-video", {"videoPath": link(i)})
+                require(status == 202, f"serve job submit: {status} {raw[:200]}")
+                ids.append(json.loads(raw)["jobId"])
+
+            def group():
+                gate.set()
+                t_release = time.time()
+                jobs = []
+                for job_id in ids:
+                    while True:
+                        job = json.loads(http_call(f"{url}/jobs/{job_id}")[2])
+                        if job["status"] in ("done", "failed"):
+                            break
+                        require(time.time() - t_release < 300, f"serve jobs: {job} after 300 s")
+                        time.sleep(0.05)
+                    jobs.append(job)
+                return jobs, t_release
+
+            (jobs, t_release), _ = counted(f"{FILE_STREAMS} jobs", group)
+            require(all(j["status"] == "done" and j["fakeScore"] == w for j, w in zip(jobs, wants)),
+                    f"serve jobs: {[(j['status'], j.get('fakeScore'), j.get('error')) for j in jobs]}"
+                    f" against the solo scores {wants}")
+            require(len({j["startedAt"] for j in jobs}) == 1,
+                    f"serve jobs: {len({j['startedAt'] for j in jobs})} groups, not one")
+            wall = max(j["finishedAt"] for j in jobs) - t_release
+            changed = []
+            for i, j in enumerate(jobs):
+                out = app.store.get(j["resultId"])["output_path"]
+                changed.append(check(f"serve job {i}", i, out))
+                os.unlink(out)
+            log(f"serve {FILE_STREAMS} grouped jobs: {sum(sampled)} sampled frames in "
+                f"{wall:.4f} s (gate released to the last job done) = "
+                f"{sum(sampled) / wall:.2f} sampled frames/s; one group, each fakeScore equal "
+                f"to its clip's solo score; frames drawn in the outputs {changed}")
+
+            def in_a_row():
+                walls = []
+                for i in range(FILE_STREAMS):
+                    t0 = time.perf_counter()
+                    out = analyze(i)[1]
+                    walls.append(time.perf_counter() - t0)
+                    os.unlink(out)
+                return sorted(walls)
+
+            walls, wall = counted(f"{FILE_STREAMS} sync in a row", in_a_row)
+            log(f"serve {FILE_STREAMS} sync requests in a row, one on each clip: {sum(sampled)} "
+                f"sampled frames in {wall:.4f} s = {sum(sampled) / wall:.2f} sampled frames/s; a "
+                f"request {walls[0]:.4f}-{walls[-1]:.4f} s, median {walls[len(walls) // 2]:.4f} s")
+            metrics = json.loads(http_call(url + "/metrics")[2])
+            analyses = 2 + 2 * FILE_STREAMS
+            require(metrics["analyses_total"] == analyses and metrics["analyses_failed"] == 0,
+                    f"serve /metrics: {metrics}, {analyses} analyses made")
+            log("serve /metrics: " + json.dumps({k: metrics[k] for k in (
+                "analyses_total", "analysis_seconds_p50", "analysis_seconds_p95",
+                "job_wait_seconds_p50", "job_run_seconds_p50")}))
+        finally:
+            httpd.shutdown()
+            httpd.server_close()
+
+        # The CLI's server in its own process, on the same nets: warmed, then cold.
+        t0 = time.perf_counter()
+        proc, base, log_path = cli_server(tmp, "warm", "--weights", wdir,
+                                          "--warmup", f"{STEP_H}x{STEP_W}")
+        try:
+            wait_health(proc, base, log_path,
+                        lambda p: p.get("warmup", {}).get("done") == [f"{STEP_H}x{STEP_W}"])
+            warm_s = time.perf_counter() - t0
+            t1 = time.perf_counter()
+            status, _, raw = http_call(base + "/analyze-video", {"videoPath": link(0)})
+            warm_first = time.perf_counter() - t1
+        finally:
+            stop(proc)
+        payload = json.loads(raw)
+        require(status == 200 and payload["fakeScore"] == want,
+                f"serve CLI warmed: {status} {payload}, in process {want}")
+        t0 = time.perf_counter()
+        proc, base, log_path = cli_server(tmp, "cold", "--weights", wdir)
+        try:
+            wait_health(proc, base, log_path, lambda p: p.get("status") == "ok")
+            ready_s = time.perf_counter() - t0
+            t1 = time.perf_counter()
+            status, _, raw = http_call(base + "/analyze-video", {"videoPath": link(0)})
+            cold_first = time.perf_counter() - t1
+        finally:
+            stop(proc)
+        payload = json.loads(raw)
+        require(status == 200 and payload["fakeScore"] == want,
+                f"serve CLI cold: {status} {payload}, in process {want}")
+        log(f"serve CLI: --warmup {STEP_H}x{STEP_W} reported done in /health {warm_s:.2f} s "
+            f"after the process started; its first /analyze-video {warm_first:.4f} s; without "
+            f"--warmup /health answered after {ready_s:.2f} s and the first /analyze-video took "
+            f"{cold_first:.4f} s (the cold cost, the kernels' libraries already built on disk); "
+            f"fakeScore {payload['fakeScore']} equal to the in-process server's")
+    log(f"serve phase: {time.perf_counter() - t_phase:.1f} s")
+    return total
+
+
+# ---------------------------------------------------------------------------
 # float32 cross-checks
 # ---------------------------------------------------------------------------
 
@@ -1715,7 +2077,8 @@ def main(argv=None) -> int:
     launch_floor("cuda")
     if not args.kernels_only:
         launches = {SCORE: e2e_phase(args.profile), PROPAGATE: propagate_phase(args.profile),
-                    MULTIFACE: multiface_phase(), STREAM: stream_phase(), FILE: file_phase()}
+                    MULTIFACE: multiface_phase(), STREAM: stream_phase(), FILE: file_phase(),
+                    SERVE: serve_phase()}
         xcheck_phase()
     device_phase(forms, rows)
     if not args.kernels_only:

@@ -3,15 +3,17 @@
 ``python -m truely_tpu_torch analyze <video>`` prints the fake score, the
 suspicious frames and the per-stage timings of one video as JSON, and
 writes the annotated video with ``-o``.  ``stream`` runs N video files as
-concurrent streams through shared device batches.  Both run on the CUDA
-device unless ``--device cpu`` asks for the CPU.  Without cv2 only
-uncompressed I420 AVI files are read, and only ``.avi`` outputs written.
+concurrent streams through shared device batches.  ``serve`` starts the API
+server (``serve/app.py``).  All three run on the CUDA device unless
+``--device cpu`` asks for the CPU.  Without cv2 only uncompressed I420 AVI
+files are read, and only ``.avi`` outputs written.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import logging
 import os
 import sys
 
@@ -31,6 +33,18 @@ def _interval_arg(value: str):
         raise argparse.ArgumentTypeError(f'expected an integer or "auto", got {value!r}')
 
 
+def _resolution(value: str) -> str:
+    """An ``HxW`` warmup bucket, checked at parse time (a malformed one
+    would otherwise show only as a warning of the warmup thread)."""
+    try:
+        h, w = map(int, value.lower().split("x"))
+        if h <= 0 or w <= 0:
+            raise ValueError
+    except ValueError:
+        raise argparse.ArgumentTypeError(f"expected HxW (e.g. 1080x1920), got {value!r}")
+    return value
+
+
 def _check_batch(args) -> bool:
     if args.batch % _interval_divisor(args.detect_interval):
         print(f"error: --batch {args.batch} must be divisible by --detect-interval "
@@ -48,6 +62,12 @@ def _detector(config, args):
     except RuntimeError as e:  # no CUDA device
         print(f"error: {e}", file=sys.stderr)
         return None
+
+
+def _warn_if_seeded(detector) -> None:
+    if not detector.facenet_pretrained:
+        print("warning: no converted FaceNet weights found (set TRUELY_TPU_WEIGHTS); "
+              "running with seeded random weights — scores are not meaningful", file=sys.stderr)
 
 
 def cmd_analyze(args) -> int:
@@ -73,9 +93,7 @@ def cmd_analyze(args) -> int:
     detector = _detector(config, args)
     if detector is None:
         return 1
-    if not detector.facenet_pretrained:
-        print("warning: no converted FaceNet weights found (set TRUELY_TPU_WEIGHTS); "
-              "running with seeded random weights — scores are not meaningful", file=sys.stderr)
+    _warn_if_seeded(detector)
     if args.multi_face:
         # Per-track scoring; the aggregate is the max over tracks.
         try:
@@ -206,6 +224,35 @@ def cmd_stream(args) -> int:
     return 0
 
 
+def cmd_serve(args) -> int:
+    """The API server on the port's detector.  The detector is built before
+    the socket opens, so a missing CUDA device fails at start-up."""
+    from truely_tpu_torch.config import DetectorConfig, MTCNNConfig, ServerConfig
+    from truely_tpu_torch.serve import app as serve_app
+
+    logging.basicConfig(level=logging.INFO,
+                        format="%(asctime)s - %(name)s - %(levelname)s - %(message)s")
+    if not _check_batch(args):
+        return 1
+    config = DetectorConfig(
+        frame_batch=args.batch,
+        multi_face=args.multi_face,
+        detect_interval=args.detect_interval,
+        mtcnn=MTCNNConfig(stage_crop_quant=args.crop_quant),
+    )
+    detector = _detector(config, args)
+    if detector is None:
+        return 1
+    _warn_if_seeded(detector)
+    app = serve_app.TruelyServer(
+        ServerConfig(host=args.host, port=args.port,
+                     warmup_resolutions=tuple(args.warmup or ())),
+        detector=detector,
+    )
+    app.serve()
+    return 0
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(prog="truely_tpu_torch")
     sub = parser.add_subparsers(dest="command", required=True)
@@ -287,6 +334,28 @@ def main(argv=None) -> int:
     p.add_argument("--crop-quant", type=int, default=4,
                    help="stage-crop box grid (1 = exact; see analyze)")
     p.set_defaults(fn=cmd_stream)
+
+    p = sub.add_parser("serve", help="start the API server")
+    p.add_argument("--host", default="0.0.0.0")
+    p.add_argument("--port", type=int, default=5001)
+    p.add_argument("--batch", type=int, default=32,
+                   help="device frame batch for the server's detector")
+    p.add_argument("--weights", help="directory of converted .npz weights")
+    p.add_argument("--device", default="cuda",
+                   help="torch device to run on (default cuda)")
+    p.add_argument("--multi-face", action="store_true",
+                   help="per-track scoring for /analyze-* (aggregate = max over tracks)")
+    p.add_argument("--crop-quant", type=int, default=4,
+                   help="stage-crop box grid (1 = exact; see analyze)")
+    p.add_argument("--detect-interval", type=_interval_arg, default=1,
+                   help="track-propagated detection for the server's analyses (see analyze). "
+                        "At K>1 grouped jobs score under the stream scheduler's cadence, so "
+                        "their decisions may differ from a solo run at the same K")
+    p.add_argument("--warmup", action="append", metavar="HxW", type=_resolution,
+                   help="warm this resolution bucket at start-up: build the kernels and run "
+                        "one step of each path (repeatable, e.g. --warmup 1080x1920); "
+                        "progress shows in /health")
+    p.set_defaults(fn=cmd_serve)
 
     args = parser.parse_args(argv)
     return args.fn(args)

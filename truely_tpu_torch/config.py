@@ -1,4 +1,5 @@
-"""Configuration of the detector, copied from ``truely_tpu/config.py``.
+"""Configuration of the detector and the API server, copied from
+``truely_tpu/config.py``.
 
 Only the fields this package reads are kept, with the same names and
 defaults.  The TPU layout switches (folded P-Net, Pallas NMS/face crop/YUV)
@@ -106,3 +107,23 @@ class DetectorConfig:
 
     def sample_interval(self, fps: int) -> int:
         return max(1, int(fps / self.sample_hz))
+
+
+@dataclasses.dataclass(frozen=True)
+class ServerConfig:
+    """API server parameters (reference server/server.py)."""
+
+    host: str = "0.0.0.0"
+    port: int = 5001
+    result_ttl_seconds: float = 3600.0
+    cleanup_period_seconds: float = 300.0
+    default_quality: str = "360p"
+    video_download_timeout: float = 180.0
+    audio_download_timeout: float = 120.0
+    # Optional JSON snapshot so unexpired results survive server restarts.
+    result_store_path: str = ""
+    # Resolution buckets ("HxW") to warm at startup on a background thread
+    # (``Detector.warmup``: the kernels' build, cuDNN's algorithm choice and
+    # the allocator's first growth), so the first /analyze-* request does
+    # not pay them.  /health reports progress.
+    warmup_resolutions: tuple = ()

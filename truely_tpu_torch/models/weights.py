@@ -57,6 +57,27 @@ def load_params(path: str):
     return listify(root)
 
 
+def save_params(path: str, module: nn.Module) -> None:
+    """Write ``module``'s weights as the flat ``.npz`` that
+    :func:`load_params` reads and ``truely_tpu.models.weights.save_params``
+    writes: keys are module paths joined with '/', in the JAX layouts."""
+    flat = {}
+    for name, m in module.named_modules():
+        key = name.replace(".", _SEP)
+        if isinstance(m, (nn.Conv2d, nn.Linear)):
+            w = m.weight.detach().cpu().numpy()
+            flat[key + "/w"] = w.transpose(2, 3, 1, 0) if w.ndim == 4 else w.T
+            if m.bias is not None:
+                flat[key + "/b"] = m.bias.detach().cpu().numpy()
+        elif isinstance(m, FrozenBN):
+            for k in _BN_KEYS:
+                flat[f"{key}/{k}"] = getattr(m, k).cpu().numpy()
+        elif isinstance(m, nn.PReLU):
+            flat[key + "/alpha"] = m.weight.detach().cpu().numpy()
+    with open(path, "wb") as f:
+        np.savez(f, **flat)
+
+
 def _copy(dst: torch.Tensor, src, path: str) -> None:
     arr = torch.from_numpy(np.array(src, dtype=np.float32, order="C"))
     if tuple(arr.shape) != tuple(dst.shape):

@@ -25,7 +25,9 @@ The file entry points, ``analyze_video``, ``analyze_video_multiface`` and
 ``run``, read a video through ``media.decode.VideoReader`` (packed I420
 from an uncompressed I420 AVI, BGR through cv2 otherwise) and can write
 the annotated video; annotating and encoding run on a worker thread beside
-the device loop.
+the device loop.  ``warmup`` runs one step of each of those paths at a
+resolution, so that a server's first request does not pay the first-use
+costs.
 """
 
 from __future__ import annotations
@@ -960,3 +962,44 @@ class Detector:
             return self.analyze_video(video_path_one, video_path_two).fake_score
         except IOError:
             return 0
+
+    def warmup(self, height: int, width: int) -> None:
+        """Warm the (height, width) bucket for ``run()`` and the server's
+        group runner: on CUDA, build the kernels (``cuda_build.build``);
+        then, on zero frames, one step of each path this config takes (the
+        BGR step, and the packed-I420 step when ``yuv_ingest`` and the
+        shape can be I420; at K > 1 or "auto" also the cascade-only seed
+        step and the propagate step, at the fixed K or the ladder's first
+        rung), and one temporal fold (multi-face: one track fold), so that
+        cuDNN's algorithm choice, the first launch of every kernel and the
+        caching allocator's first growth happen here.  Synchronises, and
+        changes no state of the detector."""
+        cfg = self.config
+        b = cfg.frame_batch
+        if self.device.type == "cuda":
+            from truely_tpu_torch.ops import cuda_build
+
+            cuda_build.build()
+        batches = {False: torch.zeros((b, height, width, 3), dtype=torch.uint8,
+                                      device=self.device)}
+        if cfg.yuv_ingest and height % 4 == 0 and width % 2 == 0:
+            batches[True] = torch.zeros((b, height * 3 // 2, width), dtype=torch.uint8,
+                                        device=self.device)
+        k = self._detect_k if self._detect_k is not None else min(2, cfg.auto_interval_max)
+        seeds = (b // k, cfg.max_tracks) if cfg.multi_face else (b // k,)
+        seed_box = torch.zeros(seeds + (4,), dtype=torch.float32, device=self.device)
+        seed_valid = torch.zeros(seeds, dtype=torch.bool, device=self.device)
+        for yuv, batch in batches.items():
+            steps = steps_for(yuv, cfg.multi_face)
+            out = self._run(steps.full, batch)
+            if k > 1:
+                self._run(steps.detect, batch)
+                self._run(steps.propagate, batch, seed_box, seed_valid, k=k)
+        if cfg.multi_face:
+            boxes, valid, emb = out
+            state = init_track_state(cfg.max_tracks, self.embedding_dim, device=self.device)
+            self.track_fold(state, boxes[None], valid[None], emb[None], b)
+        else:
+            self.temporal(out, b, init_temporal_state(self.embedding_dim, self.device))
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
