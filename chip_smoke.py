@@ -100,9 +100,30 @@ Phases, in order; any failure raises and exits non-zero:
 11. device times: ``device_ms`` of every kernel form and library call, the
    kernels' own time from torch.profiler over 20 calls, then one batch's
    track fold under torch.profiler (its ATen calls, device kernels, device
-   and wall time).  It runs last: once the profiler has traced the card,
-   every launch costs the host more for the rest of the process, which
-   would slow the phases above.
+   and wall time).  It runs last, after phase 12: once the profiler has
+   traced the card, every launch costs the host more for the rest of the
+   process, which would slow the phases above;
+12. parallel (runs between phases 10 and 11), on meshes whose positions all
+   name CUDA device 0 (``truely_tpu_torch/parallel``): the score path at
+   the bf16 defaults on nets that find faces (``serve_weights``), solo and
+   on 2 and 4 positions (16 and 8 rows a shard) on the score phase's
+   frames: every kernel launches once per shard (n times the solo run's
+   count) and K5 not, the records stay within ``DRIFT_BOUNDS`` of the solo
+   run's (the count of differing records printed), and the sampled
+   frames/s of the three runs are printed together; the propagate path at
+   K=4 and "auto" on 16 positions (2 rows a shard, fewer than the
+   interval) under the propagate phase's conditions: K1, K2, K4, K5 and no
+   K3 kernel, the ladder climbs, records within ``DRIFT_BOUNDS`` of the
+   solo run's; ``StreamScheduler`` with 8 streams x 4 frames on a (2, 1)
+   mesh; training at full width (Inception-ResNet-v1 and the landmark
+   head, float32, batch 64 of seeded 80x80 crops, 10 steps: the loss
+   falls, steps/s printed), its first step held to the CPU's step on the
+   same params and batch, and the DP (2, 1) and TP (1, 2) steps to the
+   single-device one (``TRAIN_LOSS_RTOL``, ``TRAIN_GRAD_TOL``), and a
+   checkpoint round trip; ``pipeline_block17`` (2 stages, 8 microbatches)
+   ``torch.equal`` per microbatch to the sequential chain;
+   ``sharded_temporal`` equal to the unsharded fold; and
+   ``parallel.dryrun.dryrun_multichip`` on two positions.
 
 The script's wall time is printed before the last two lines.  The line
 before the last is one JSON object with every kernel's numbers;
@@ -165,8 +186,8 @@ PROP_THRESHOLDS = (0.0, 0.0, 0.0)
 # and the propagate path would only run its fallback.  Its runs scale both
 # regression heads by this factor: refined boxes stay near their candidates.
 PROP_REGRESSION_SCALE = 0.1
-SCORE, PROPAGATE, MULTIFACE, STREAM, FILE, SERVE = (
-    "score", "propagate", "multiface", "stream", "file", "serve")
+SCORE, PROPAGATE, MULTIFACE, STREAM, FILE, SERVE, PARALLEL = (
+    "score", "propagate", "multiface", "stream", "file", "serve", "parallel")
 PATHS = (SCORE, PROPAGATE, MULTIFACE, STREAM, FILE, SERVE)
 # The file path: a 1080p uncompressed I420 AVI at fps 14 (sample interval 2,
 # so unsampled frames are skipped, or carried to the writer), 128 frames:
@@ -1106,7 +1127,7 @@ def multiface_stage_times(det, packed: torch.Tensor, k: Optional[int] = None) ->
         out, times[name] = sync_ms(fn)
         return out
 
-    with torch.inference_mode(), det._precision():
+    with torch.inference_mode(), tdet.precision(det.dtype):
         frames = timed("i420_to_bgr", lambda: tdet.to_frames(packed, cfg))
         if k is None:
             boxes, valid = timed("cascade (full, top 4 by area)", lambda: tdet.multiface_select(
@@ -2039,6 +2060,338 @@ def xcheck_phase() -> None:
             f"bf16 card against CPU: {d} outside {DRIFT_BOUNDS}")
 
 
+# ---------------------------------------------------------------------------
+# Parallel path (phase 12)
+# ---------------------------------------------------------------------------
+
+# The score path's meshes: 2 and 4 positions of CUDA device 0 (16 and 8 rows
+# a shard at frame_batch 32).  The propagate path's mesh: 16 positions, 2
+# rows a shard, fewer than K=4 and than "auto"'s upper rungs.
+PAR_POSITIONS = (2, 4)
+PAR_PROP_POSITIONS, PAR_PROP_BATCHES = 16, 8
+# Training at full width: batch 64 of 80x80 crops, float32 (TF32 off).  The
+# DP (2, 1) and TP (1, 2) steps against the card's single-device step: the
+# loss within TRAIN_LOSS_RTOL, each leaf's gradient within TRAIN_GRAD_TOL
+# of the leaf's largest gradient plus 1e-3 relative (the tolerances of
+# tests/test_torch_train.py).  The card's first step against the CPU step
+# on the same params and batch: the loss within TRAIN_LOSS_RTOL, each
+# leaf's gradient within TRAIN_CPU_GRAD_FRO of its norm (||card - CPU|| /
+# ||CPU||).  At batch 64 a few leaves of the 1x1 Block8 stage differ by up
+# to 11% of their largest gradient between the card and the CPU, while the
+# card repeats its own step far closer (checked too): float32 rounding of
+# two conv libraries, amplified where a ReLU gate sits near 0 and by the
+# NT-Xent temperature of 0.1; the worst leaf norm differs by 2.1%.
+TRAIN_BATCH, TRAIN_STEPS, TRAIN_LR = 64, 10, 1e-4
+TRAIN_LOSS_RTOL, TRAIN_GRAD_TOL, TRAIN_CPU_GRAD_FRO = 1e-5, 1e-2, 5e-2
+# pipeline_block17: 2 stages of 5 blocks, 8 microbatches of 8 rows of the
+# 80x80 crop's Block17 activation (3 x 3 x 896).
+PIPE_STAGES, PIPE_MICRO, PIPE_ROWS = 2, 8, 8
+# Every mesh position of phase 12 (a CPU rehearsal sets the CPU).
+CARD = torch.device("cuda", 0)
+
+
+def cuda_mesh(n: int, shape=None, names=("data", "model")):
+    """A mesh of ``n`` positions of CARD."""
+    from truely_tpu_torch.parallel.mesh import make_mesh
+
+    return make_mesh(shape or (n, 1), names, devices=[CARD] * n)
+
+
+def records_differing(ref: list, got: list) -> int:
+    return sum(a != b for a, b in zip(ref, got))
+
+
+def mesh_score_runs(weights_dir: str) -> Dict[str, int]:
+    """The score path at the bf16 defaults on nets that find faces
+    (``serve_weights``), solo and on 2 and 4 positions, on the score
+    phase's frames; each mesh run launches every kernel n times as often
+    as the solo run (once per shard) and K5 never, and its records stay
+    within DRIFT_BOUNDS of the solo run's.  Returns the 2-position run's
+    launches."""
+    from truely_tpu_torch.config import DetectorConfig
+    from truely_tpu_torch.pipeline.detector import Detector
+
+    cfg = DetectorConfig()
+    b = cfg.frame_batch
+    packed = synthetic_i420(b * (1 + E2E_BATCHES), STEP_H, STEP_W, seed=7)
+    solo, solo_launches = drive(Detector(cfg, weights_dir=weights_dir), packed, b,
+                                "parallel solo")
+    require(sum(r.has_face for r in solo.records) >= len(solo.records) // 2,
+            "parallel: the solo run found too few faces to compare")
+    rates = {1: solo.total_processed / solo.timings["total"]}
+    first = None
+    for n in PAR_POSITIONS:
+        det = Detector(cfg, weights_dir=weights_dir, mesh=cuda_mesh(n))
+        res, launches = drive(det, packed, b, f"parallel mesh {n}x1")
+        require(all(launches[k] == n * solo_launches[k] for k in launches),
+                f"mesh {n}x1: launches {launches}, solo {solo_launches}: not once per shard")
+        require_launched(launches, f"parallel mesh {n}x1", k5=False)
+        d = drift(solo.records, res.records)
+        log(f"parallel mesh {n}x1 against solo: {records_differing(solo.records, res.records)} "
+            f"of {len(res.records)} records differ; drift {json.dumps(d)}; scores "
+            f"{res.fake_score} / {solo.fake_score}")
+        require(all(d[k] <= v for k, v in DRIFT_BOUNDS.items()),
+                f"mesh {n}x1 against solo: {d} outside {DRIFT_BOUNDS}")
+        rates[n] = res.total_processed / res.timings["total"]
+        first = first or launches
+    log("parallel score path, sampled frames/s (analyze_i420's own total) by mesh positions: "
+        + json.dumps({str(k): round(v, 2) for k, v in rates.items()}))
+    return first
+
+
+def mesh_propagate_runs() -> Dict[str, int]:
+    """K=4 and "auto" on PAR_PROP_POSITIONS positions (2 rows a shard)
+    under the propagate phase's conditions: K1, K2, K4, K5 launch and no
+    K3 kernel, the ladder climbs, and the records stay within
+    DRIFT_BOUNDS of the solo run's.  Returns the K=4 run's launches."""
+    from truely_tpu_torch.config import DetectorConfig, MTCNNConfig
+    from truely_tpu_torch.pipeline.detector import Detector
+
+    mt = MTCNNConfig(stage_crop_quant=1, use_fused_crops=1, thresholds=PROP_THRESHOLDS)
+    b = DetectorConfig().frame_batch
+    packed = stable_i420(b * (4 + PAR_PROP_BATCHES), STEP_H, STEP_W, seed=21)
+    fixed = None
+    for interval in (4, "auto"):
+        cfg = DetectorConfig(detect_interval=interval, mtcnn=mt)
+        solo, _ = drive(steady_regression(Detector(cfg)), packed, 4 * b,
+                        f"parallel solo K={interval}")
+        det = steady_regression(Detector(cfg, mesh=cuda_mesh(PAR_PROP_POSITIONS)))
+        res, launches = drive(det, packed, 4 * b,
+                              f"parallel mesh {PAR_PROP_POSITIONS}x1 K={interval}")
+        require_launched(launches, f"parallel mesh K={interval}", k5=True)
+        d = drift(solo.records, res.records)
+        log(f"parallel mesh K={interval} against solo: "
+            f"{records_differing(solo.records, res.records)} of {len(res.records)} records "
+            f"differ; drift {json.dumps(d)}")
+        require(all(d[k] <= v for k, v in DRIFT_BOUNDS.items()),
+                f"mesh K={interval} against solo: {d} outside {DRIFT_BOUNDS}")
+        if interval == "auto":
+            log(f"parallel mesh auto telemetry: rung {det.auto_interval_current}, keyframe "
+                f"segments {det.auto_keyframe_segments}, refine segments "
+                f"{det.auto_refine_segments}")
+            require(det.auto_refine_segments > 0 and det.auto_interval_current > 1,
+                    "the auto ladder did not climb on the mesh")
+        else:
+            fixed = launches
+    return fixed
+
+
+def mesh_stream_run() -> Dict[str, int]:
+    """``StreamScheduler`` with 8 streams x 4 frames on a (2, 1) mesh at the
+    defaults: K1-K4, not K5, one event per pushed sampled frame
+    (``drive_stream``), each stream's processed count that of the solo
+    scheduler; both schedulers' scores are printed."""
+    from truely_tpu_torch.config import DetectorConfig
+    from truely_tpu_torch.pipeline.detector import Detector
+
+    content = stream_content(STREAMS, STREAM_LEN // 2, STEP_H, STEP_W, seed=41)
+    solo, _, _ = drive_stream(Detector(DetectorConfig()), content, "parallel solo")
+    sched, launches, _ = drive_stream(Detector(DetectorConfig(), mesh=cuda_mesh(2)), content,
+                                      "parallel mesh 2x1")
+    require_launched(launches, "stream parallel mesh 2x1", k5=False)
+    require(sched._mesh == cuda_mesh(2), "the scheduler did not take the detector's mesh")
+    pairs = [(sched.stats[i].processed, solo.stats[i].processed) for i in range(STREAMS)]
+    require(all(a == b for a, b in pairs), f"stream mesh: processed {pairs}")
+    scores = [(sched.score(i), solo.score(i)) for i in range(STREAMS)]
+    log(f"stream parallel mesh 2x1 against solo: scores (mesh, solo) {scores}")
+    return launches
+
+
+def train_tree(seed: int):
+    """The training tree of the port's seeded FaceNet and landmark head,
+    with batchnorm scales and shifts drawn from ``seed`` (so that every
+    leaf's gradient is not trivial)."""
+    from truely_tpu_torch.models.weights import init_params, params_to_numpy
+
+    rng = np.random.default_rng(seed)
+
+    def perturb(node):
+        if isinstance(node, list):
+            return [perturb(v) for v in node]
+        out = {}
+        for k, v in node.items():
+            if isinstance(v, (dict, list)):
+                out[k] = perturb(v)
+            elif k in ("gamma", "var"):
+                out[k] = rng.uniform(0.7, 1.3, v.shape).astype(np.float32)
+            elif k in ("beta", "mean"):
+                out[k] = rng.normal(0, 0.05, v.shape).astype(np.float32)
+            else:
+                out[k] = v
+        return out
+
+    return {"facenet": perturb(params_to_numpy(init_params("facenet"))),
+            "landmark": perturb(params_to_numpy(init_params("landmark68")))}
+
+
+def tree_leaves(tree, path=""):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from tree_leaves(v, f"{path}/{k}")
+    elif isinstance(tree, list):
+        for i, v in enumerate(tree):
+            yield from tree_leaves(v, f"{path}/{i}")
+    else:
+        yield path, tree
+
+
+def compare_steps(label: str, got, want, fro_tol: Optional[float] = None) -> None:
+    """(metrics, gradient tree) of two first steps: the loss within
+    TRAIN_LOSS_RTOL, and every leaf's gradient within TRAIN_GRAD_TOL of the
+    leaf's largest plus 1e-3 relative, or with ``fro_tol`` within that
+    share of the leaf's norm."""
+    (gm, gg), (wm, wg) = got, want
+    loss_err = abs(gm["loss"] - wm["loss"]) / abs(wm["loss"])
+    worst, worst_fro = (0.0, ""), (0.0, "")
+    bad = []
+    for (path, a), (_, b) in zip(tree_leaves(gg), tree_leaves(wg)):
+        scale = float(np.abs(b).max())
+        err = float(np.abs(a - b).max()) / max(scale, 1e-30)
+        fro = float(np.linalg.norm(a - b)) / max(float(np.linalg.norm(b)), 1e-30)
+        worst, worst_fro = max(worst, (err, path)), max(worst_fro, (fro, path))
+        ok = (fro <= fro_tol if fro_tol is not None
+              else np.allclose(a, b, rtol=1e-3, atol=TRAIN_GRAD_TOL * scale + 1e-12))
+        if not ok:
+            bad.append(path)
+    log(f"train {label}: loss {gm['loss']:.6f} / {wm['loss']:.6f} (rel err {loss_err:.2e}); "
+        f"largest gradient error {worst[0]:.2e} of its leaf's largest gradient, at "
+        f"{worst[1]}; largest error of a leaf's norm {worst_fro[0]:.2e}, at {worst_fro[1]}; "
+        f"{len(bad)} leaves outside the tolerance "
+        f"({'norm ' + str(fro_tol) if fro_tol is not None else 'largest ' + str(TRAIN_GRAD_TOL)})")
+    require(loss_err <= TRAIN_LOSS_RTOL and not bad,
+            f"train {label}: loss rel err {loss_err}, leaves outside: {bad[:5]}")
+
+
+def train_runs() -> dict:
+    """Full-width training on the card: TRAIN_STEPS steps (the loss falls;
+    steps/s), the first step against the CPU's, the DP and TP steps against
+    the single-device one, and a checkpoint round trip."""
+    from truely_tpu_torch.parallel import checkpoint
+    from truely_tpu_torch.parallel.sharding import tp_shard_facenet
+    from truely_tpu_torch.parallel.train import (
+        make_train_step, numpy_batch, train_params_from_numpy, train_params_to_numpy,
+    )
+
+    torch.set_num_threads(min(8, os.cpu_count() or 1))
+    tree = train_tree(31)
+    batch = numpy_batch(np.random.default_rng(32), TRAIN_BATCH)
+
+    def first_step(init_fn, step_fn, params):
+        state, m = step_fn(init_fn(params), batch)
+        return state, ({k: float(v) for k, v in m.items()},
+                       train_params_to_numpy(state.params, grads=True))
+
+    init_fn, step_fn = make_train_step(learning_rate=TRAIN_LR)
+    state, card = first_step(init_fn, step_fn, train_params_from_numpy(tree))
+    losses = [card[0]["loss"]]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(TRAIN_STEPS - 1):
+        state, m = step_fn(state, batch)
+        losses.append(m["loss"])
+    torch.cuda.synchronize()
+    rate = (TRAIN_STEPS - 1) / (time.perf_counter() - t0)
+    losses = [float(v) for v in losses]
+    compare_steps("card against itself", first_step(init_fn, step_fn,
+                                                   train_params_from_numpy(tree))[1], card)
+    log(f"train: Inception-ResNet-v1 + landmark head, float32, batch {TRAIN_BATCH} of 80x80, "
+        f"{TRAIN_STEPS} steps: {rate:.2f} steps/s (steps 2-{TRAIN_STEPS}); losses "
+        f"{[round(v, 5) for v in losses]}")
+    require(losses[-1] < losses[0], f"train: the loss did not fall: {losses}")
+
+    t0 = time.perf_counter()
+    cpu_init, cpu_step = make_train_step(learning_rate=TRAIN_LR, device="cpu")
+    _, cpu = first_step(cpu_init, cpu_step, train_params_from_numpy(tree))
+    log(f"train: the CPU's first step took {time.perf_counter() - t0:.1f} s")
+    compare_steps("card against CPU", card, cpu, fro_tol=TRAIN_CPU_GRAD_FRO)
+    dp_init, dp_step = make_train_step(cuda_mesh(2), learning_rate=TRAIN_LR)
+    compare_steps("DP (2, 1) against one device",
+                  first_step(dp_init, dp_step, train_params_from_numpy(tree))[1], card)
+    tp_mesh = cuda_mesh(2, (1, 2))
+    tp_init, tp_step = make_train_step(tp_mesh, learning_rate=TRAIN_LR)
+    compare_steps("TP (1, 2) against one device",
+                  first_step(tp_init, tp_step,
+                             tp_shard_facenet(tp_mesh, train_params_from_numpy(tree)))[1], card)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        checkpoint.save_train_state(tmp, state)
+        require(checkpoint.latest_step(tmp) == TRAIN_STEPS, "checkpoint: latest step")
+        back = checkpoint.restore_train_state(tmp, init_fn(train_params_from_numpy(tree)))
+    same = all(torch.equal(p, q) for a, b in zip(state.params.values(), back.params.values())
+               for p, q in zip(a.parameters(), b.parameters()))
+    same_moments = all(
+        torch.equal(state.opt_state.state[p][k], back.opt_state.state[q][k])
+        for a, b in zip(state.params.values(), back.params.values())
+        for p, q in zip(a.parameters(), b.parameters()) for k in ("exp_avg", "exp_avg_sq"))
+    log(f"train: checkpoint round trip of step {back.step}: values equal {same}, Adam moments "
+        f"equal {same_moments}")
+    require(same and same_moments and back.step == TRAIN_STEPS, "checkpoint round trip")
+    return {"steps_per_s": rate, "losses": losses}
+
+
+def toolkit_runs() -> None:
+    """pipeline_block17 (2 stages, 8 microbatches) ``torch.equal`` per
+    microbatch to the sequential chain; sharded_temporal equal to the
+    unsharded fold; the dry run of every sharded program."""
+    from truely_tpu_torch.models.weights import init_params
+    from truely_tpu_torch.ops.temporal import temporal_consistency
+    from truely_tpu_torch.parallel.dryrun import dryrun_multichip
+    from truely_tpu_torch.parallel.pipeline import pipeline_block17
+    from truely_tpu_torch.parallel.sharding import sharded_temporal
+    from truely_tpu_torch.pipeline.detector import full_float32
+
+    dev = CARD
+    blocks = list(init_params("facenet").to(dev).repeat_2)
+    rng = np.random.default_rng(33)
+    x = torch.from_numpy(rng.normal(size=(PIPE_MICRO * PIPE_ROWS, 3, 3, 896)).astype(
+        np.float32)).to(dev)
+    stages, fn = pipeline_block17(cuda_mesh(PIPE_STAGES, (PIPE_STAGES,), ("stage",)), blocks,
+                                  n_microbatches=PIPE_MICRO)
+    with torch.inference_mode(), full_float32():
+        out = fn(stages, x)
+        ref = []
+        for piece in x.chunk(PIPE_MICRO):
+            for blk in blocks:
+                piece = blk(piece.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+            ref.append(piece)
+        equal = [torch.equal(a, b) for a, b in zip(out.chunk(PIPE_MICRO), ref)]
+    log(f"pipeline_block17: {len(blocks)} blocks over {PIPE_STAGES} stages, {PIPE_MICRO} "
+        f"microbatches of {tuple(ref[0].shape)}: equal per microbatch {equal}")
+    require(all(equal), "pipeline_block17 differs from the sequential chain")
+
+    emb = torch.from_numpy(rng.normal(size=(512, 512)).astype(np.float32)).to(dev)
+    # near neighbours (similarity about 0.9996) and far ones (about 0.96):
+    # runs below the 0.99 threshold form, flag and reset
+    scale = torch.from_numpy(rng.choice([0.02, 0.2], size=(512, 1)).astype(np.float32))
+    emb = emb[:1] + scale.to(dev) * emb
+    has_face = torch.from_numpy(rng.random(512) > 0.1).to(dev)
+    got = sharded_temporal(cuda_mesh(4))(emb, has_face, 500)
+    with torch.inference_mode():
+        want = temporal_consistency(emb, has_face, 500)
+    same = all(torch.equal(a, b) for a, b in zip(got[:7], want[:7])) and all(
+        torch.equal(a, b) for a, b in zip(got.state, want.state))
+    log(f"sharded_temporal over 4 positions, 512 frames: equal to the unsharded fold {same}; "
+        f"final counter {int(got.final_counter)}, flagged {int(got.flagged_count)}")
+    require(same, "sharded_temporal differs from the unsharded fold")
+    dryrun_multichip([dev, dev])
+
+
+def parallel_phase() -> Dict[str, int]:
+    """Phase 12: the score, propagate and stream paths on meshes of CUDA
+    device 0, training at full width, and the rest of the toolkit.
+    Returns each kernel's launches summed over the mesh runs of the score
+    (2 positions), propagate (K=4) and stream paths."""
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        total = mesh_score_runs(serve_weights(tmp))
+    total = add_launches(total, mesh_propagate_runs())
+    total = add_launches(total, mesh_stream_run())
+    train_runs()
+    toolkit_runs()
+    log(f"parallel phase: {time.perf_counter() - t_phase:.1f} s")
+    return total
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", metavar="DIR", default=None,
@@ -2080,6 +2433,7 @@ def main(argv=None) -> int:
                     MULTIFACE: multiface_phase(), STREAM: stream_phase(), FILE: file_phase(),
                     SERVE: serve_phase()}
         xcheck_phase()
+        launches[PARALLEL] = parallel_phase()
     device_phase(forms, rows)
     if not args.kernels_only:
         fold_profile("cuda")

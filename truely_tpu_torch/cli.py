@@ -5,8 +5,10 @@ suspicious frames and the per-stage timings of one video as JSON, and
 writes the annotated video with ``-o``.  ``stream`` runs N video files as
 concurrent streams through shared device batches.  ``serve`` starts the API
 server (``serve/app.py``).  All three run on the CUDA device unless
-``--device cpu`` asks for the CPU.  Without cv2 only uncompressed I420 AVI
-files are read, and only ``.avi`` outputs written.
+``--device cpu`` asks for the CPU, and ``--dp N`` splits every frame batch
+over the first N CUDA devices (with ``--device cpu``: N positions on the
+CPU).  Without cv2 only uncompressed I420 AVI files are read, and only
+``.avi`` outputs written.
 """
 
 from __future__ import annotations
@@ -53,12 +55,42 @@ def _check_batch(args) -> bool:
     return True
 
 
+def _dp_mesh(args):
+    """(ok, mesh): the ``--dp N`` data mesh over the first N CUDA devices
+    (``--device cpu``: N positions on the CPU), None for N = 1; not ok
+    after printing why (too few devices, a batch that does not divide)."""
+    if args.dp <= 1:
+        return True, None
+    import torch
+
+    from truely_tpu_torch.parallel.mesh import make_mesh
+
+    if torch.device(args.device).type == "cpu":
+        devices = ["cpu"] * args.dp
+    else:
+        n = torch.cuda.device_count()
+        if n < args.dp:
+            print(f"error: --dp {args.dp} needs {args.dp} devices, have {n}", file=sys.stderr)
+            return False, None
+        devices = [torch.device("cuda", i) for i in range(args.dp)]
+    if args.batch % args.dp:
+        print(f"error: --batch {args.batch} must be divisible by --dp {args.dp}",
+              file=sys.stderr)
+        return False, None
+    return True, make_mesh((args.dp, 1), ("data", "model"), devices=devices)
+
+
 def _detector(config, args):
-    """The detector on ``--device``, or None after printing why not."""
+    """The detector on ``--device`` (over the ``--dp`` mesh), or None after
+    printing why not."""
     from truely_tpu_torch.pipeline.detector import Detector
 
+    ok, mesh = _dp_mesh(args)
+    if not ok:
+        return None
     try:
-        return Detector(config, weights_dir=args.weights, device=args.device)
+        return Detector(config, weights_dir=args.weights,
+                        device=None if mesh is not None else args.device, mesh=mesh)
     except RuntimeError as e:  # no CUDA device
         print(f"error: {e}", file=sys.stderr)
         return None
@@ -295,6 +327,9 @@ def main(argv=None) -> int:
     p.add_argument("--no-propagate-fallback", action="store_true",
                    help="with --detect-interval: never re-run full detection on segments "
                         "whose refinement collapsed")
+    p.add_argument("--dp", type=int, default=1,
+                   help="shard each frame batch over the first N devices (data-parallel "
+                        "mesh); batch must divide by N")
     p.set_defaults(fn=cmd_analyze)
 
     p = sub.add_parser("stream",
@@ -333,6 +368,8 @@ def main(argv=None) -> int:
                    help="exact full-frame pyramid resample (see analyze)")
     p.add_argument("--crop-quant", type=int, default=4,
                    help="stage-crop box grid (1 = exact; see analyze)")
+    p.add_argument("--dp", type=int, default=1,
+                   help="shard the shared batch over the first N devices")
     p.set_defaults(fn=cmd_stream)
 
     p = sub.add_parser("serve", help="start the API server")
@@ -355,6 +392,8 @@ def main(argv=None) -> int:
                    help="warm this resolution bucket at start-up: build the kernels and run "
                         "one step of each path (repeatable, e.g. --warmup 1080x1920); "
                         "progress shows in /health")
+    p.add_argument("--dp", type=int, default=1,
+                   help="shard the server's frame batches over the first N devices")
     p.set_defaults(fn=cmd_serve)
 
     args = parser.parse_args(argv)

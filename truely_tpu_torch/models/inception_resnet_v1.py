@@ -154,5 +154,9 @@ class InceptionResnetV1(nn.Module):
             h = blk(h, dtype)
         h = self.block8(h, dtype)
         h = h.mean(dim=(2, 3))
-        h = self.last_bn(L.dense(self.last_linear, h, dtype))
+        ll = self.last_linear
+        # A column-split projection (parallel.sharding.tp_shard_facenet)
+        # computes its own slices.
+        h = L.dense(ll, h, dtype) if isinstance(ll, nn.Linear) else ll(h, dtype)
+        h = self.last_bn(h)
         return L.l2_normalize(h) if normalize else h

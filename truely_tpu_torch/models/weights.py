@@ -71,7 +71,7 @@ def save_params(path: str, module: nn.Module) -> None:
                 flat[key + "/b"] = m.bias.detach().cpu().numpy()
         elif isinstance(m, FrozenBN):
             for k in _BN_KEYS:
-                flat[f"{key}/{k}"] = getattr(m, k).cpu().numpy()
+                flat[f"{key}/{k}"] = getattr(m, k).detach().cpu().numpy()
         elif isinstance(m, nn.PReLU):
             flat[key + "/alpha"] = m.weight.detach().cpu().numpy()
     with open(path, "wb") as f:
@@ -120,6 +120,39 @@ def params_from_numpy(name: str, tree) -> nn.Module:
     if n != expected:
         raise ValueError(f"{name}: tree sets {n} tensors, module has {expected}")
     return module.eval()
+
+
+def params_to_numpy(module: nn.Module, grads: bool = False):
+    """The JAX-layout param tree of ``module`` as numpy (the inverse of
+    :func:`params_from_numpy`); ``grads=True``: the tree of the leaves'
+    gradients instead.  A module whose projection is column-split
+    (``parallel.sharding.ColumnParallelLinear``) gives the whole weight."""
+
+    def leaf(t: torch.Tensor) -> np.ndarray:
+        t = t.grad if grads else t
+        if t is None:
+            raise ValueError("a leaf has no gradient")
+        # a copy: the numpy view of a CPU tensor would follow its training
+        return t.detach().cpu().numpy().copy()
+
+    def walk(m: nn.Module):
+        if isinstance(m, (nn.Conv2d, nn.Linear)):
+            w = leaf(m.weight)
+            node = {"w": w.transpose(2, 3, 1, 0) if w.ndim == 4 else w.T}
+            if m.bias is not None:
+                node["b"] = leaf(m.bias)
+            return node
+        if hasattr(m, "full_weight"):  # column slices, concatenated
+            return {"w": np.concatenate([leaf(w) for w in m.shards]).T}
+        if isinstance(m, FrozenBN):
+            return {k: leaf(getattr(m, k)) for k in sorted(_BN_KEYS)}
+        if isinstance(m, nn.PReLU):
+            return {"alpha": leaf(m.weight)}
+        if isinstance(m, nn.ModuleList):
+            return [walk(c) for c in m]
+        return {k: walk(c) for k, c in m.named_children()}
+
+    return walk(module)
 
 
 def init_params(name: str, seed: Optional[int] = None) -> nn.Module:

@@ -42,14 +42,16 @@ def _result(s, output_path: Optional[str] = None) -> BatchVideoResult:
                             track_scores=s.track_scores)
 
 
-def analyze_videos(detector, paths: Sequence[str], *,
-                   frames_per_video: Optional[int] = None) -> List[BatchVideoResult]:
-    """Analyze a batch of same-resolution videos concurrently on one card.
+def analyze_videos(detector, paths: Sequence[str], *, frames_per_video: Optional[int] = None,
+                   mesh=None) -> List[BatchVideoResult]:
+    """Analyze a batch of same-resolution videos concurrently on one card,
+    or over a mesh: ``mesh`` goes to the scheduler, which splits every
+    shared batch over the mesh's data axis.
 
     fps may differ per video (per-video sampling intervals).  Runs the
     live-stream path (``stream_files.stream_videos``) at full decode
     speed, so each result is exactly the video's solo ``analyze_video``."""
-    summaries = stream_videos(detector, paths, frames_per_stream=frames_per_video)
+    summaries = stream_videos(detector, paths, frames_per_stream=frames_per_video, mesh=mesh)
     return [_result(s) for s in summaries]
 
 
@@ -99,14 +101,14 @@ def render_annotated(config, path: str, output_path: str, events) -> None:
                                  else np.ascontiguousarray(frame[..., ::-1]))
 
 
-def analyze_videos_annotated(detector, paths: Sequence[str],
-                             output_paths: Sequence[str]) -> List[BatchVideoResult]:
+def analyze_videos_annotated(detector, paths: Sequence[str], output_paths: Sequence[str], *,
+                             mesh=None) -> List[BatchVideoResult]:
     """Shared-batch scoring of N same-resolution videos, plus an annotated
     output for each.  One pass through the scheduler does all device work
     for every video (decisions equal each video's solo analysis), and the
     annotation is a host-only re-render from the recorded events.  With a
     multi-face detector, results carry per-track scores and the re-render
-    draws every updated track's box."""
+    draws every updated track's box.  ``mesh`` as in ``analyze_videos``."""
     if len(paths) != len(output_paths):
         raise ValueError(f"{len(paths)} inputs but {len(output_paths)} output paths")
     events: Dict[int, Dict[int, object]] = {i: {} for i in range(len(paths))}
@@ -114,7 +116,7 @@ def analyze_videos_annotated(detector, paths: Sequence[str],
     def on_event(e):
         events[e.stream_id][e.frame_index] = e
 
-    summaries = stream_videos(detector, paths, on_event=on_event)
+    summaries = stream_videos(detector, paths, mesh=mesh, on_event=on_event)
     out = []
     for i, (s, opath) in enumerate(zip(summaries, output_paths)):
         render_annotated(detector.config, paths[i], opath, events[i])

@@ -188,21 +188,36 @@ def frame_step_detect_yuv(nets: DetectorNets, packed: torch.Tensor, cfg: Detecto
     return frame_step_detect(nets, to_frames(packed, cfg), cfg, dtype)
 
 
+def seed_rows(seeds: torch.Tensor, k: int, row0: int, b: int) -> torch.Tensor:
+    """The per-row seeds of rows ``[row0, row0 + b)`` of a batch whose
+    every group of ``k`` rows shares one seed: a data shard of the batch
+    takes its rows by its global offset ``row0``."""
+    return seeds.repeat_interleave(k, dim=0)[row0:row0 + b]
+
+
+def keyframe_rows(k: int, row0: int, b: int, device) -> torch.Tensor:
+    """Whether each row of ``[row0, row0 + b)`` is a keyframe (every k-th
+    row of the whole batch)."""
+    return (torch.arange(row0, row0 + b, device=device) % k) == 0
+
+
 def frame_step_propagate(nets: DetectorNets, frames: torch.Tensor, seed_boxes: torch.Tensor,
                          seed_valid: torch.Tensor, cfg: DetectorConfig, dtype,
-                         k: Optional[int] = None) -> FrameOutputs:
+                         k: Optional[int] = None, row0: int = 0) -> FrameOutputs:
     """Track-propagated frame step: ``frames`` is a chronological batch whose
     every K-th row is a keyframe, ``seed_boxes``/``seed_valid`` the (B/K,)
     keyframe detections.  Keyframe rows pass their seed through (bit-equal
     to full detection); the rows between refine it (``refine_faces``).
-    ``k`` overrides the config's interval (the "auto" ladder's rung)."""
+    ``k`` overrides the config's interval (the "auto" ladder's rung).  On
+    a data shard, ``frames`` holds rows ``[row0, row0 + B_shard)`` of the
+    batch and the seeds are the whole batch's."""
     k = k if k is not None else cfg.detect_interval
     b = frames.shape[0]
-    sb = seed_boxes.repeat_interleave(k, dim=0)    # (B, 4)
-    sv = seed_valid.repeat_interleave(k, dim=0)    # (B,)
+    sb = seed_rows(seed_boxes, k, row0, b)    # (B, 4)
+    sv = seed_rows(seed_valid, k, row0, b)    # (B,)
     det = refine_faces(nets.mtcnn, frames, sb, sv, cfg.mtcnn, dtype=dtype)
     box, _score, ok = select_primary_face(det, largest=cfg.mtcnn.select_largest)
-    is_kf = (torch.arange(b, device=frames.device) % k) == 0
+    is_kf = keyframe_rows(k, row0, b, frames.device)
     box = torch.where(is_kf[:, None], sb, box)
     has_face = torch.where(is_kf, sv, ok)
     return embed_tail(nets, frames, box, has_face, cfg, dtype)
@@ -210,21 +225,24 @@ def frame_step_propagate(nets: DetectorNets, frames: torch.Tensor, seed_boxes: t
 
 def frame_step_propagate_yuv(nets: DetectorNets, packed: torch.Tensor,
                              seed_boxes: torch.Tensor, seed_valid: torch.Tensor,
-                             cfg: DetectorConfig, dtype, k: Optional[int] = None) -> FrameOutputs:
+                             cfg: DetectorConfig, dtype, k: Optional[int] = None,
+                             row0: int = 0) -> FrameOutputs:
     return frame_step_propagate(nets, to_frames(packed, cfg), seed_boxes, seed_valid, cfg,
-                                dtype, k=k)
+                                dtype, k=k, row0=row0)
 
 
 def frame_step_refine(nets: DetectorNets, frames: torch.Tensor, seed_boxes: torch.Tensor,
                       seed_valid: torch.Tensor, cfg: DetectorConfig, dtype,
-                      rows_per_seed: int) -> FrameOutputs:
+                      rows_per_seed: int, row0: int = 0) -> FrameOutputs:
     """Seeded refinement of every row (the stream scheduler's step between
     keyframe steps): ``frames`` is (S·rows_per_seed, ...) grouped per
-    stream, ``seed_boxes``/``seed_valid`` (S,) each stream's carried seed.
-    No row passes its seed through, so a stale seed is re-checked (and can
-    be rejected) on every sampled frame."""
-    sb = seed_boxes.repeat_interleave(rows_per_seed, dim=0)
-    sv = seed_valid.repeat_interleave(rows_per_seed, dim=0)
+    stream, ``seed_boxes``/``seed_valid`` (S,) each stream's carried seed
+    (on a data shard: rows from ``row0`` on, as in
+    ``frame_step_propagate``).  No row passes its seed through, so a stale
+    seed is re-checked (and can be rejected) on every sampled frame."""
+    b = frames.shape[0]
+    sb = seed_rows(seed_boxes, rows_per_seed, row0, b)
+    sv = seed_rows(seed_valid, rows_per_seed, row0, b)
     det = refine_faces(nets.mtcnn, frames, sb, sv, cfg.mtcnn, dtype=dtype)
     box, _score, ok = select_primary_face(det, largest=cfg.mtcnn.select_largest)
     return embed_tail(nets, frames, box, ok, cfg, dtype)
@@ -232,9 +250,9 @@ def frame_step_refine(nets: DetectorNets, frames: torch.Tensor, seed_boxes: torc
 
 def frame_step_refine_yuv(nets: DetectorNets, packed: torch.Tensor, seed_boxes: torch.Tensor,
                           seed_valid: torch.Tensor, cfg: DetectorConfig, dtype,
-                          rows_per_seed: int) -> FrameOutputs:
+                          rows_per_seed: int, row0: int = 0) -> FrameOutputs:
     return frame_step_refine(nets, to_frames(packed, cfg), seed_boxes, seed_valid, cfg, dtype,
-                             rows_per_seed)
+                             rows_per_seed, row0=row0)
 
 
 # ---------------------------------------------------------------------------
@@ -294,18 +312,19 @@ def multiface_detect_yuv(nets: DetectorNets, packed: torch.Tensor, cfg: Detector
 
 def multiface_step_propagate(nets: DetectorNets, frames: torch.Tensor,
                              seed_boxes: torch.Tensor, seed_valid: torch.Tensor,
-                             cfg: DetectorConfig, dtype, k: Optional[int] = None):
+                             cfg: DetectorConfig, dtype, k: Optional[int] = None,
+                             row0: int = 0):
     """Track-propagated multi-face step: ``seed_boxes`` (B/K, T, 4) and
     ``seed_valid`` (B/K, T) are the keyframes' detections.  Keyframe rows
     pass their seeds through; the rows between refine all T seeds
-    (``refine_faces_multi``)."""
+    (``refine_faces_multi``).  ``row0`` as in ``frame_step_propagate``."""
     k = k if k is not None else cfg.detect_interval
     b = frames.shape[0]
-    sb = seed_boxes.repeat_interleave(k, dim=0)    # (B, T, 4)
-    sv = seed_valid.repeat_interleave(k, dim=0)    # (B, T)
+    sb = seed_rows(seed_boxes, k, row0, b)    # (B, T, 4)
+    sv = seed_rows(seed_valid, k, row0, b)    # (B, T)
     det = refine_faces_multi(nets.mtcnn, frames, sb, sv, cfg.mtcnn, dtype=dtype)
     boxes, valid = multiface_select(det, cfg.max_tracks)
-    is_kf = (torch.arange(b, device=frames.device) % k) == 0
+    is_kf = keyframe_rows(k, row0, b, frames.device)
     boxes = torch.where(is_kf[:, None, None], sb, boxes)
     valid = torch.where(is_kf[:, None], sv, valid)
     return multiface_tail(nets, frames, boxes, valid, cfg, dtype)
@@ -313,19 +332,22 @@ def multiface_step_propagate(nets: DetectorNets, frames: torch.Tensor,
 
 def multiface_step_propagate_yuv(nets: DetectorNets, packed: torch.Tensor,
                                  seed_boxes: torch.Tensor, seed_valid: torch.Tensor,
-                                 cfg: DetectorConfig, dtype, k: Optional[int] = None):
+                                 cfg: DetectorConfig, dtype, k: Optional[int] = None,
+                                 row0: int = 0):
     return multiface_step_propagate(nets, to_frames(packed, cfg), seed_boxes, seed_valid, cfg,
-                                    dtype, k=k)
+                                    dtype, k=k, row0=row0)
 
 
 def multiface_step_refine(nets: DetectorNets, frames: torch.Tensor, seed_boxes: torch.Tensor,
                           seed_valid: torch.Tensor, cfg: DetectorConfig, dtype,
-                          rows_per_seed: int):
+                          rows_per_seed: int, row0: int = 0):
     """Seeded multi-face refinement of every row (the stream scheduler's
     multi-face step between keyframe steps): ``seed_boxes`` (S, T, 4) and
-    ``seed_valid`` (S, T) are each stream's carried track seeds."""
-    sb = seed_boxes.repeat_interleave(rows_per_seed, dim=0)
-    sv = seed_valid.repeat_interleave(rows_per_seed, dim=0)
+    ``seed_valid`` (S, T) are each stream's carried track seeds; ``row0``
+    as in ``frame_step_refine``."""
+    b = frames.shape[0]
+    sb = seed_rows(seed_boxes, rows_per_seed, row0, b)
+    sv = seed_rows(seed_valid, rows_per_seed, row0, b)
     det = refine_faces_multi(nets.mtcnn, frames, sb, sv, cfg.mtcnn, dtype=dtype)
     boxes, valid = multiface_select(det, cfg.max_tracks)
     return multiface_tail(nets, frames, boxes, valid, cfg, dtype)
@@ -333,9 +355,9 @@ def multiface_step_refine(nets: DetectorNets, frames: torch.Tensor, seed_boxes: 
 
 def multiface_step_refine_yuv(nets: DetectorNets, packed: torch.Tensor,
                               seed_boxes: torch.Tensor, seed_valid: torch.Tensor,
-                              cfg: DetectorConfig, dtype, rows_per_seed: int):
+                              cfg: DetectorConfig, dtype, rows_per_seed: int, row0: int = 0):
     return multiface_step_refine(nets, to_frames(packed, cfg), seed_boxes, seed_valid, cfg,
-                                 dtype, rows_per_seed)
+                                 dtype, rows_per_seed, row0=row0)
 
 
 class Steps(NamedTuple):
@@ -429,6 +451,11 @@ def full_float32():
         torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
 
 
+def precision(dtype):
+    """``full_float32()`` for float32 compute, else nothing."""
+    return full_float32() if dtype == torch.float32 else contextlib.nullcontext()
+
+
 class Detector:
     """The score path (one face per frame) and the multi-face path
     (``analyze_*_tracks``) on one device.
@@ -438,16 +465,37 @@ class Detector:
     nets load from ``weights_dir``/``$TRUELY_TPU_WEIGHTS`` or take the
     seeded init.  ``device`` defaults to CUDA and raises when there is no
     CUDA device; pass ``device="cpu"`` to run the plain versions on the CPU.
+
+    ``mesh``: a ``parallel.mesh.Mesh``; every batch step then runs
+    data-parallel over its ``data_axis`` (the frame axis split into one
+    shard per position, each shard on its device's replica of the nets,
+    the outputs gathered on the mesh's first device, which is the
+    Detector's device), so every entry point scales by constructing the
+    Detector with a mesh and nothing else changes.
     """
 
     def __init__(self, config: Optional[DetectorConfig] = None,
                  params: Optional[Mapping[str, object]] = None,
-                 device=None, weights_dir: Optional[str] = None):
+                 device=None, weights_dir: Optional[str] = None,
+                 mesh=None, data_axis: str = "data"):
+        self.config = config or DetectorConfig()
+        cfg = self.config
+        self.mesh = mesh
+        self._data_axis = data_axis
+        if mesh is not None:
+            from truely_tpu_torch.parallel.mesh import canonical_device
+
+            if device is not None and canonical_device(device) != mesh.first_device:
+                raise ValueError(f"device {device} is not the mesh's first device "
+                                 f"{mesh.first_device}")
+            device = mesh.first_device
+            n_dp = mesh.shape[data_axis]
+            if cfg.frame_batch % n_dp:
+                raise ValueError(f"frame_batch ({cfg.frame_batch}) must be divisible by the "
+                                 f"'{data_axis}' mesh axis ({n_dp})")
         self.device = torch.device("cuda" if device is None else device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("no CUDA device; pass device='cpu' to run on the CPU")
-        self.config = config or DetectorConfig()
-        cfg = self.config
         if cfg.draw_mode not in ("all", "flagged-only"):
             raise ValueError(f"draw_mode must be 'all' or 'flagged-only', got {cfg.draw_mode!r}")
         # detect_interval: a fixed K (self._detect_k) or "auto" (None).
@@ -486,14 +534,66 @@ class Detector:
             facenet=nets["facenet"], landmark=nets["landmark68"],
         )
         self.embedding_dim = nets["facenet"].last_linear.out_features
-
-    def _precision(self):
-        return full_float32() if self.dtype == torch.float32 else contextlib.nullcontext()
+        # (mesh, axis) -> the nets' replicas; (mesh, axis, ...) -> sharded steps
+        self._sharded_cache: dict = {}
+        if mesh is not None:
+            self._spec, self._replicas = self._mesh_replicas(mesh, data_axis)
 
     def _run(self, fn, *args, **kwargs):
-        """``fn(nets, *args, config, dtype, **kwargs)``, one of the frame steps."""
-        with torch.inference_mode(), self._precision():
-            return fn(self.nets, *args, self.config, self.dtype, **kwargs)
+        """``fn(nets, *args, config, dtype, **kwargs)``, one of the frame
+        steps; with a mesh, on every data shard of ``args[0]``."""
+        with torch.inference_mode(), precision(self.dtype):
+            if self.mesh is None:
+                return fn(self.nets, *args, self.config, self.dtype, **kwargs)
+            from truely_tpu_torch.parallel.sharding import run_sharded
+
+            return run_sharded(self._spec, fn, self._replicas, *args, cfg=self.config,
+                               dtype=self.dtype, **kwargs)
+
+    def _mesh_replicas(self, mesh, data_axis: str):
+        """(data split, replicas of the nets) for ``mesh``, made once per
+        (mesh, axis) and shared by every sharded step on it."""
+        key = (mesh, data_axis)
+        if key not in self._sharded_cache:
+            from truely_tpu_torch.parallel.sharding import dp_spec, replicate
+
+            self._sharded_cache[key] = (dp_spec(mesh, data_axis), replicate(mesh, self.nets))
+        return self._sharded_cache[key]
+
+    def sharded_step(self, mesh, data_axis: str = "data", yuv: bool = False,
+                     multiface: bool = False):
+        """Cached ``(step_fn, params, spec)`` for data-parallel execution over
+        an explicit mesh: ``step_fn(params, frames)`` runs the full step
+        (``yuv``: on packed I420; ``multiface``: the per-track step) on each
+        data shard, ``params`` are the nets' replicas (one set per (mesh,
+        axis), shared by every step on it; the Detector's own for its own
+        mesh: meshes compare by devices and axes), ``spec`` the frame
+        axis's split."""
+        key = (mesh, data_axis, yuv, multiface)
+        if key not in self._sharded_cache:
+            from truely_tpu_torch.parallel.sharding import shard_frame_step
+
+            spec, replicas = self._mesh_replicas(mesh, data_axis)
+            self._sharded_cache[key] = (
+                shard_frame_step(mesh, self.config, data_axis=data_axis, yuv=yuv,
+                                 multiface=multiface), replicas, spec)
+        return self._sharded_cache[key]
+
+    def sharded_refine_step(self, mesh, data_axis: str = "data", yuv: bool = False,
+                            rows_per_seed: int = 1, multiface: bool = False):
+        """Cached ``(refine_fn, params)`` for the stream scheduler's
+        propagate mode over an explicit mesh: ``refine_fn(params, frames,
+        seed_boxes, seed_valid)``, as ``sharded_step`` (the replicas are
+        the same), one per ``rows_per_seed``."""
+        key = (mesh, data_axis, yuv, "refine", rows_per_seed, multiface)
+        if key not in self._sharded_cache:
+            from truely_tpu_torch.parallel.sharding import shard_frame_step
+
+            _, replicas = self._mesh_replicas(mesh, data_axis)
+            self._sharded_cache[key] = (
+                shard_frame_step(mesh, self.config, data_axis=data_axis, yuv=yuv,
+                                 refine_rows=rows_per_seed, multiface=multiface), replicas)
+        return self._sharded_cache[key]
 
     def step(self, frames: torch.Tensor) -> FrameOutputs:
         """One batch of (B, H, W, 3) uint8 frames on the device."""

@@ -56,6 +56,7 @@ def stream_videos(
     paths: Sequence[str],
     *,
     frames_per_stream: Optional[int] = None,
+    mesh=None,
     realtime: bool = False,
     partial_step_budget: float = 0.0,
     yuv: Optional[bool] = None,
@@ -72,6 +73,8 @@ def stream_videos(
     every stream can give it.  ``on_event`` fires for every sampled frame as
     its step completes.  A dict passed as ``scheduler_stats`` receives the
     batch-efficiency counters (steps, frames scored, padded rows uploaded).
+    ``mesh`` goes to the scheduler, which splits every shared batch over the
+    mesh's data axis (default: the detector's mesh).
 
     ``partial_step_budget`` (realtime only): a partial batch runs only once
     its oldest queued frame is that many seconds old; until then the loop
@@ -88,14 +91,14 @@ def stream_videos(
         for p in paths:
             readers.append(VideoReader(p, rgb=not detector.config.reference_compat, yuv=yuv))
         return _run(detector, paths, readers, frames_per_stream=frames_per_stream,
-                    realtime=realtime, partial_step_budget=partial_step_budget,
+                    mesh=mesh, realtime=realtime, partial_step_budget=partial_step_budget,
                     on_event=on_event, scheduler_stats=scheduler_stats, multi_face=multi_face)
     finally:
         for r in readers:
             r.close()
 
 
-def _run(detector, paths, readers, *, frames_per_stream, realtime, on_event,
+def _run(detector, paths, readers, *, frames_per_stream, mesh, realtime, on_event,
          scheduler_stats=None, partial_step_budget=0.0, multi_face=None):
     metas = [r.meta for r in readers]
     h, w = metas[0].height, metas[0].width
@@ -106,7 +109,7 @@ def _run(detector, paths, readers, *, frames_per_stream, realtime, on_event,
     # one kind of ingest for all: packed I420 only when every stream has it
     use_yuv = all(r.yuv_active for r in readers)
     sched = StreamScheduler(detector, n_streams=len(paths), frames_per_stream=frames_per_stream,
-                            fps=metas[0].fps, yuv=use_yuv, multi_face=multi_face)
+                            fps=metas[0].fps, mesh=mesh, yuv=use_yuv, multi_face=multi_face)
     cfg = detector.config
     streams: List[_PerStream] = []
     for r, m in zip(readers, metas):

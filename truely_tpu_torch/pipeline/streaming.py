@@ -1,5 +1,4 @@
-"""Multi-stream scheduler (counterpart of ``truely_tpu/pipeline/streaming.py``,
-without its multi-device mesh).
+"""Multi-stream scheduler (counterpart of ``truely_tpu/pipeline/streaming.py``).
 
 N concurrent video streams share device batches: each ``step()`` packs up
 to ``frames_per_stream`` queued sampled frames of every stream into one
@@ -15,6 +14,10 @@ the steps between refine every row from its stream's carried seed
 stream's T track seeds); a step where no stream holds a seed is promoted
 to a keyframe step.  "auto" ladders K (single face only: a multi-face
 scheduler given "auto" runs full detection on every step).
+
+With ``mesh=`` (default: the detector's) each step's batch is split over
+the mesh's data axis (``Detector.sharded_step``); events and scores are
+the single-device ones.
 """
 
 from __future__ import annotations
@@ -87,13 +90,14 @@ class StreamStats:
 
 class StreamScheduler:
     def __init__(self, detector, n_streams: int, *, frames_per_stream=None, fps: int = 60,
-                 yuv: bool = False, detect_interval=None, multi_face=None):
+                 mesh=None, data_axis: str = "data", yuv: bool = False,
+                 detect_interval=None, multi_face=None):
         """``detector``: a ``pipeline.detector.Detector``.  ``yuv=True``:
         pushed frames are packed I420 pictures ((H*3//2, W) uint8),
         converted on the device (kernel K1); events and scores equal BGR
-        feeding.  ``detect_interval`` (default: the detector config's) and
-        ``multi_face`` (default: the config's) as in the module
-        docstring."""
+        feeding.  ``mesh``/``data_axis``, ``detect_interval`` (default: the
+        detector config's) and ``multi_face`` (default: the config's) as in
+        the module docstring."""
         self.detector = detector
         self.config: DetectorConfig = detector.config
         self.n_streams = n_streams
@@ -103,6 +107,19 @@ class StreamScheduler:
         self.sample_interval = self.config.sample_interval(fps)
         f = frames_per_stream or max(1, self.config.frame_batch // n_streams)
         self.frames_per_stream = f
+        # A mesh Detector always shards its steps, so the scheduler takes its
+        # mesh by default and checks the shared batch against it.
+        if mesh is None and detector.mesh is not None:
+            mesh, data_axis = detector.mesh, detector._data_axis
+        self._mesh = mesh
+        if mesh is not None:
+            n_dp = mesh.shape[data_axis]
+            if (n_streams * f) % n_dp:
+                raise ValueError(f"streams*frames_per_stream ({n_streams}*{f}) must be "
+                                 f"divisible by the '{data_axis}' mesh axis ({n_dp})")
+            # cached on the detector: one set of replicas per mesh
+            self._sharded_step, self._sharded_params, _ = detector.sharded_step(
+                mesh, data_axis, yuv=yuv, multiface=self.multi_face)
         self._queues: List[Deque[Tuple[int, np.ndarray]]] = [
             collections.deque() for _ in range(n_streams)]
         self._states = self._fresh_states(n_streams)
@@ -143,6 +160,9 @@ class StreamScheduler:
         else:
             self._full = frame_step_yuv if yuv else frame_step
             self._refine = frame_step_refine_yuv if yuv else frame_step_refine
+        if mesh is not None and k > 1:
+            self._refine_step, _ = detector.sharded_refine_step(
+                mesh, data_axis, yuv=yuv, rows_per_seed=f, multiface=self.multi_face)
 
     def _fresh_states(self, n: int):
         dim, device = self.detector.embedding_dim, self.detector.device
@@ -243,11 +263,20 @@ class StreamScheduler:
                 self._since_keyframe += 1
         det = self.detector
         frames = torch.from_numpy(batch.reshape((s * f,) + sample.shape)).to(det.device)
-        if run_full:
+        if not run_full:
+            seeds = (torch.from_numpy(self._seed_box).to(det.device),
+                     torch.from_numpy(self._seed_valid).to(det.device))
+        if self._mesh is not None:
+            params = self._sharded_params
+            out = (self._sharded_step(params, frames) if run_full
+                   else self._refine_step(params, frames, *seeds))
+            # gathered on the mesh's first device; the states are on the detector's
+            moved = (t.to(det.device) for t in out)
+            out = out._make(moved) if hasattr(out, "_make") else tuple(moved)
+        elif run_full:
             out = det._run(self._full, frames)
         else:
-            out = det._run(self._refine, frames, torch.from_numpy(self._seed_box).to(det.device),
-                           torch.from_numpy(self._seed_valid).to(det.device), rows_per_seed=f)
+            out = det._run(self._refine, frames, *seeds, rows_per_seed=f)
         n_dev = torch.from_numpy(n_valid).to(det.device)
         if self.multi_face:
             return self._multiface_events(out, n_valid, n_dev, indices)

@@ -1,0 +1,3 @@
+"""Shared utilities: profiling (counterpart of ``truely_tpu/utils``)."""
+
+from truely_tpu_torch.utils.profiling import StageTimer, profile_trace  # noqa: F401
