@@ -123,7 +123,22 @@ Phases, in order; any failure raises and exits non-zero:
    checkpoint round trip; ``pipeline_block17`` (2 stages, 8 microbatches)
    ``torch.equal`` per microbatch to the sequential chain;
    ``sharded_temporal`` equal to the unsharded fold; and
-   ``parallel.dryrun.dryrun_multichip`` on two positions.
+   ``parallel.dryrun.dryrun_multichip`` on two positions;
+13. native (runs after phase 12): the host C++ (``media/host_build.py``):
+   the compiler, whether the libav headers were found, the linked
+   libavcodec's version, whether it has libx264, and whether cv2 reads the
+   bundled mp4; each framepack function at 1080p byte-equal to its numpy
+   version and both timed (host ms); the bf16 pyramid without the cascade
+   (``--exact-pyramid``) on a 1080p batch, every level P-Net sees on the
+   card ``torch.equal`` to the CPU's ``resize_area_u8``; ``analyze_video``
+   at the bf16 defaults on the bundled mp4v clip (``tests/fixtures/
+   veo3_360p.mp4``), printing ``VideoReader.decoder`` and ``yuv_ingest``:
+   through the native decoder where it is built (K1 must launch, and every
+   record must equal the same file read with ``yuv_ingest=False``), else
+   through cv2; where the native writer is built, also with an ``.mp4``
+   output, which must be H.264 (where libx264 is there) with the source's
+   frame count.  A library that cannot be built for want of libav headers
+   is printed as such.
 
 The script's wall time is printed before the last two lines.  The line
 before the last is one JSON object with every kernel's numbers;
@@ -186,8 +201,8 @@ PROP_THRESHOLDS = (0.0, 0.0, 0.0)
 # and the propagate path would only run its fallback.  Its runs scale both
 # regression heads by this factor: refined boxes stay near their candidates.
 PROP_REGRESSION_SCALE = 0.1
-SCORE, PROPAGATE, MULTIFACE, STREAM, FILE, SERVE, PARALLEL = (
-    "score", "propagate", "multiface", "stream", "file", "serve", "parallel")
+SCORE, PROPAGATE, MULTIFACE, STREAM, FILE, SERVE, PARALLEL, NATIVE = (
+    "score", "propagate", "multiface", "stream", "file", "serve", "parallel", "native")
 PATHS = (SCORE, PROPAGATE, MULTIFACE, STREAM, FILE, SERVE)
 # The file path: a 1080p uncompressed I420 AVI at fps 14 (sample interval 2,
 # so unsampled frames are skipped, or carried to the writer), 128 frames:
@@ -2392,6 +2407,221 @@ def parallel_phase() -> Dict[str, int]:
     return total
 
 
+# ---------------------------------------------------------------------------
+# Native host layer (phase 13)
+# ---------------------------------------------------------------------------
+
+# The bundled mp4v clip (MPEG-4 Part 2; 640x360, 30 fps, 960 frames, yuv420p, untagged
+# colour): the mp4 the native decoder reads on the card.
+NATIVE_CLIP = os.path.join(ROOT, "tests", "fixtures", "veo3_360p.mp4")
+# framepack at 1080p: one device batch of BGR frames packed, the rest on one
+# frame; each function timed over this many calls after one warm-up call.
+NATIVE_PACK_B, NATIVE_REPS = 32, 5
+# The exact bf16 pyramid (pyramid_cascade=False) card against CPU: frames.
+PYRAMID_B = 2
+
+
+def median_ms(fn: Callable[[], object], reps: int = NATIVE_REPS) -> float:
+    """Median host milliseconds of ``fn`` over ``reps`` calls, after one."""
+    fn()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times))
+
+
+def libav_status() -> dict:
+    """The host build: the compiler, each library's state, the linked
+    libavcodec's version and whether it has libx264; cv2 and whether it
+    reads the bundled mp4."""
+    from truely_tpu_torch.media import decode, host_build, videodec, videoenc
+
+    host_build.load("framepack")
+    cxx = host_build.compiler()
+    version = subprocess.run([cxx, "--version"], capture_output=True, text=True,
+                             timeout=60).stdout.splitlines()[0]
+    out = {"compiler": f"{cxx}: {version}", "flags": " ".join(host_build.CXX_FLAGS),
+           "libav_headers": {name: host_build.missing_headers(name) or "found"
+                             for name in ("videodec", "videoenc")},
+           "videodec": videodec.available(), "videoenc": videoenc.available(),
+           "avcodec": videodec.avcodec_version(), "libx264": videoenc.has_x264()}
+    out["status"] = host_build.status()
+    cv2 = decode.cv2
+    reads = False
+    if cv2 is not None:
+        cap = cv2.VideoCapture(NATIVE_CLIP)
+        reads = bool(cap.isOpened() and cap.read()[0])
+        cap.release()
+    out["cv2"] = None if cv2 is None else cv2.__version__
+    out["cv2_reads_mp4"] = reads
+    return out
+
+
+def framepack_runs() -> None:
+    """Each framepack function at 1080p byte-equal to its numpy version, and
+    the milliseconds of both (host time: these run on the host)."""
+    from truely_tpu_torch.media import native
+
+    rng = np.random.default_rng(61)
+    frames = [rng.integers(0, 256, (STEP_H, STEP_W, 3), np.uint8) for _ in range(4)]
+    srcs = [frames[i % 4] for i in range(NATIVE_PACK_B)]
+    offsets = list(range(NATIVE_PACK_B))[::-1]
+    packed = synthetic_i420(1, STEP_H, STEP_W, seed=62)[0]
+    # Each side's output: the packed batch, a converted frame, a frame drawn
+    # on (a box inside the frame and one partly outside), a swapped frame.
+    out = {side: {"pack": np.zeros((NATIVE_PACK_B, STEP_H, STEP_W, 3), np.uint8),
+                  "draw": frames[0].copy(), "swap": frames[1].copy()}
+           for side in ("native", "plain")}
+
+    def draw(side, fn):
+        fn(out[side]["draw"], 311, 207, 1402, 969, (0, 0, 255))
+        fn(out[side]["draw"], -40, 500, 2000, 1100, (1, 2, 3), thickness=3)
+
+    def convert(side, fn, rgb):
+        out[side][f"bgr{rgb}"] = fn(packed, rgb=rgb)
+
+    cases = [
+        ("pack_frames (32 frames)", "pack",
+         lambda: native.pack_frames(out["native"]["pack"], srcs, offsets),
+         lambda: native.pack_frames_plain(out["plain"]["pack"], srcs, offsets)),
+        ("i420_to_bgr_host", "bgrFalse",
+         lambda: convert("native", native.i420_to_bgr_host, False),
+         lambda: convert("plain", native.i420_to_bgr_host_plain, False)),
+        ("i420_to_bgr_host rgb", "bgrTrue",
+         lambda: convert("native", native.i420_to_bgr_host, True),
+         lambda: convert("plain", native.i420_to_bgr_host_plain, True)),
+        ("draw_rect (2 boxes)", "draw", lambda: draw("native", native.draw_rect),
+         lambda: draw("plain", native.draw_rect_plain)),
+        ("bgr_to_rgb", "swap", lambda: native.bgr_to_rgb(out["native"]["swap"]),
+         lambda: native.bgr_to_rgb_plain(out["plain"]["swap"])),
+    ]
+    for name, key, run, plain in cases:
+        run()
+        plain()
+        require(np.array_equal(out["native"][key], out["plain"][key]),
+                f"framepack {name}: not equal to its numpy version")
+        log(f"native framepack {name} at {STEP_W}x{STEP_H}: {median_ms(run):.4f} ms, numpy "
+            f"{median_ms(plain):.4f} ms (median of {NATIVE_REPS}, equal; {card_line()})")
+    require(np.array_equal(out["native"]["pack"][NATIVE_PACK_B - 1], frames[0]),
+            "framepack pack_frames: row 31 is not frame 0")
+
+
+def pyramid_check() -> None:
+    """The bf16 pyramid without the cascade (``--exact-pyramid``) on a
+    1080p batch: the levels P-Net sees on the card ``torch.equal`` to the
+    CPU's ``resize_area_u8``."""
+    from truely_tpu_torch.config import MTCNNConfig
+    from truely_tpu_torch.media import native
+    from truely_tpu_torch.models.weights import init_params
+    from truely_tpu_torch.ops.resize import resize_area_u8
+    from truely_tpu_torch.pipeline import mtcnn
+    from truely_tpu_torch.pipeline.pyramid import pyramid_schedule
+
+    packed = synthetic_i420(PYRAMID_B, STEP_H, STEP_W, seed=63)
+    frames = torch.from_numpy(np.stack([native.i420_to_bgr_host(p) for p in packed]))
+    nets = mtcnn.MTCNNNets(*(init_params(n).to(CARD) for n in ("pnet", "rnet", "onet")))
+    seen = []
+    trunk = nets.pnet.trunk
+    nets.pnet.trunk = lambda x, dtype: seen.append(x) or trunk(x, dtype)
+    with torch.inference_mode():
+        mtcnn._stage1(nets, frames.to(CARD), MTCNNConfig(pyramid_cascade=False), torch.bfloat16)
+    levels = pyramid_schedule(STEP_H, STEP_W)
+    require(len(seen) == len(levels), f"pyramid: {len(seen)} levels, want {len(levels)}")
+    differing = 0
+    for x, lvl in zip(seen, levels):
+        want = (resize_area_u8(frames, (lvl.height, lvl.width)).float() - 127.5) * 0.0078125
+        differing += int((x.cpu() != want).sum())
+    log(f"native pyramid: bf16 pyramid_cascade=False, {len(levels)} levels of {PYRAMID_B} "
+        f"frames at {STEP_W}x{STEP_H}: {differing} values differ between the card and the CPU")
+    require(differing == 0, "pyramid: the card's exact bf16 levels differ from the CPU's")
+
+
+def native_phase() -> Dict[str, int]:
+    """Phase 13: the native host layer on the card's machine.  Returns the
+    kernels' launches of the timed mp4 run (through videodec where it is
+    built, else through cv2)."""
+    from truely_tpu_torch.config import DetectorConfig
+    from truely_tpu_torch.media import videodec
+    from truely_tpu_torch.media.decode import VideoReader
+    from truely_tpu_torch.pipeline.detector import Detector
+
+    t_phase = time.perf_counter()
+    status = libav_status()
+    log("native host build: " + json.dumps(status))
+    framepack_runs()
+    pyramid_check()
+
+    # Nets that find faces at the default thresholds (``serve_weights``), so
+    # that the records carry boxes and the output has frames drawn on.
+    with tempfile.TemporaryDirectory() as wdir:
+        det = Detector(DetectorConfig(), weights_dir=serve_weights(wdir))
+        with VideoReader(NATIVE_CLIP, yuv=True) as reader:
+            decoder, meta = reader.decoder, reader.meta
+        log(f"native mp4: {NATIVE_CLIP} {meta.width}x{meta.height} fps {meta.fps_exact} "
+            f"{meta.frame_count} frames: VideoReader(yuv=True).decoder {decoder}")
+        require(decoder == ("videodec" if status["videodec"] else "cv2"),
+                f"native mp4: decoder {decoder} with videodec {status['videodec']}")
+        require(decoder == "videodec" or status["cv2_reads_mp4"],
+                "native mp4: neither the native decoder nor cv2 reads the mp4")
+        det.analyze_video(NATIVE_CLIP)  # warm-up
+
+        def run(label, detector, *args):
+            counters = reset_launches()
+            t0 = time.perf_counter()
+            res = detector.analyze_video(NATIVE_CLIP, *args)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = read_launches(counters)
+            log(f"native mp4 {label}: decoder {decoder if detector is det else 'cv2'}, yuv_ingest "
+                f"{res.yuv_ingest}, {res.frame_count} frames, {res.total_processed} sampled in "
+                f"{wall:.4f} s = {res.total_processed / wall:.2f} sampled frames/s; score "
+                f"{res.fake_score}; timings "
+                + json.dumps({k: round(v, 4) for k, v in res.timings.items()})
+                + f"; launches {json.dumps(launches)}")
+            return res, launches
+
+        got, launches = run("bf16 defaults", det)
+        require(got.yuv_ingest == (decoder == "videodec") and got.frame_count == meta.frame_count,
+                f"native mp4: yuv_ingest {got.yuv_ingest}, {got.frame_count} frames")
+        require_launched({k: v for k, v in launches.items()
+                          if k != "i420_to_bgr" or decoder == "videodec"}, "native mp4", k5=False)
+        if decoder == "videodec":
+            if status["cv2_reads_mp4"]:
+                bgr = Detector(DetectorConfig(yuv_ingest=False), weights_dir=wdir)
+                want, bgr_launches = run("yuv_ingest=False (cv2)", bgr)
+                require(bgr_launches["i420_to_bgr"] == 0, "native mp4: K1 launched on the BGR path")
+                compare_exact("native mp4 videodec against cv2", got, want)
+            else:
+                with VideoReader(NATIVE_CLIP, yuv=True) as reader:
+                    pictures = np.stack([p for _, p in reader.yuv_frames()])
+                compare_exact("native mp4 videodec against analyze_i420", got,
+                              det.analyze_i420(pictures, fps=meta.fps))
+            log(f"native mp4: {len(got.records)} records equal across the two decoders")
+        if status["videoenc"]:
+            with tempfile.TemporaryDirectory() as tmp:
+                out = os.path.join(tmp, "out.mp4")
+                res, _ = run("with -o out.mp4", det, out)
+                compare_exact("native mp4 with output", res, got)
+                hnd, w, h, fn, fd, _nb = videodec.open(out)
+                codec, n = videodec.codec(hnd), 0
+                while videodec.skip(hnd):
+                    n += 1
+                videodec.close(hnd)
+                log(f"native mp4 output: {codec} {w}x{h} at {fn}/{fd}, {n} frames "
+                    f"({os.path.getsize(out) / 1e6:.2f} MB)")
+                require(n == meta.frame_count and (w, h) == (meta.width, meta.height),
+                        f"native mp4 output: {n} frames of {w}x{h}")
+                require(codec == "h264" or not status["libx264"],
+                        f"native mp4 output: codec {codec} with libx264 present")
+        else:
+            log("native mp4 output: videoenc not built ("
+                + status["status"]["videoenc"] + "): an mp4 output takes cv2's fourcc chain")
+    log(f"native phase: {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", metavar="DIR", default=None,
@@ -2434,6 +2664,7 @@ def main(argv=None) -> int:
                     SERVE: serve_phase()}
         xcheck_phase()
         launches[PARALLEL] = parallel_phase()
+        launches[NATIVE] = native_phase()
     device_phase(forms, rows)
     if not args.kernels_only:
         fold_profile("cuda")

@@ -7,7 +7,8 @@ are in ``tests/test_torch_analyze_video_tracks.py``.
 
 The port reads an uncompressed I420 AVI through its own ``rawavi`` reader
 and kernel K1's plain version; the JAX package reads it through cv2.  An
-mp4v file goes through cv2 on both sides.  Content and cascade settings
+mp4v file goes through the port's native ``videodec`` where it is built
+(cv2 with ``yuv_ingest=False``), and through cv2 in the JAX package.  Content and cascade settings
 are those of ``tests/test_torch_propagate.py`` (blurred 64x96 frames, small
 capacities, permissive thresholds).  Decisions (has_face, annotated,
 flagged, counters, score) are equal, boxes within 1 px, similarities within
@@ -32,6 +33,7 @@ from tests.test_torch_propagate import assert_records_match, configs, trees  # n
 from truely_tpu.config import DetectorConfig as JDetectorConfig
 from truely_tpu.pipeline.detector import Detector as JDetector
 from truely_tpu_torch.config import DetectorConfig
+from truely_tpu_torch.media import videodec
 from truely_tpu_torch.media.decode import VideoReader
 from truely_tpu_torch.pipeline import detector as tdetector_mod
 from truely_tpu_torch.pipeline.detector import Detector
@@ -104,13 +106,31 @@ def test_analyze_video_matches_jax(dets, trees, clip, yuv):
 
 
 def test_analyze_video_fixture_cut_matches_jax(dets, fixture_cut):
+    """The mp4v cut is eligible for packed-I420 ingest: where the libav
+    headers let the port's ``videodec`` be built it reads the cut (the JAX
+    package reads it through cv2), else cv2 does."""
     jdet, det = dets
     ref = jax_video(jdet, fixture_cut)
     got = det.analyze_video(fixture_cut)
-    assert not got.yuv_ingest
+    with VideoReader(fixture_cut, yuv=True) as reader:
+        decoder = reader.decoder
+    assert decoder == ("videodec" if videodec.available() else "cv2")
+    assert got.yuv_ingest == (decoder == "videodec") and not ref.yuv_ingest
     assert (got.frame_count, got.total_processed) == (ref.frame_count, ref.total_processed) == (64, 16)
     assert_records_match(got, ref)
     assert any(r.has_face for r in got.records)
+
+
+def test_analyze_video_fixture_cut_bgr_matches_jax(dets, trees, fixture_cut):
+    """The same cut with ``yuv_ingest=False``: cv2's BGR decode on both
+    sides."""
+    jdet, det = dets
+    det = Detector(dataclasses.replace(det.config, yuv_ingest=False), params=trees, device="cpu")
+    ref = jax_video(jdet, fixture_cut)
+    got = det.analyze_video(fixture_cut)
+    assert not got.yuv_ingest
+    assert (got.frame_count, got.total_processed) == (64, 16)
+    assert_records_match(got, ref)
 
 
 def test_frames_after_a_full_last_batch_cost_no_step(dets, tmp_path, monkeypatch):

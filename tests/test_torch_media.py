@@ -24,7 +24,7 @@ from tests.rawavi import write_i420_avi
 from truely_tpu.media import decode as jdecode
 from truely_tpu.media import native as jnative
 from truely_tpu.media import overlay as joverlay
-from truely_tpu_torch.media import decode, encode, native, overlay, rawavi
+from truely_tpu_torch.media import decode, encode, native, overlay, rawavi, videodec, videoenc
 
 torch.set_num_threads(2)
 
@@ -372,11 +372,15 @@ def test_draw_rect_equals_jax_numpy(box):
 
 
 def test_without_cv2(tmp_path, monkeypatch):
-    """Without cv2: boxes come from ``draw_rect`` and carry no text,
-    landmarks and other containers raise, I420 AVI still reads and
-    writes."""
+    """Without cv2 and without the native libav reader and writer: boxes
+    come from ``draw_rect`` and carry no text, landmarks and other
+    containers raise, I420 AVI still reads and writes.  (Where the libav
+    headers let them be built, the native reader and writer take mp4
+    without cv2: ``tests/test_torch_native.py``.)"""
     for mod in (overlay, decode, encode):
         monkeypatch.setattr(mod, "cv2", None)
+    monkeypatch.setattr(videodec, "available", lambda: False)
+    monkeypatch.setattr(videoenc, "available", lambda: False)
     frame = np.zeros((40, 50, 3), np.uint8)
     overlay.annotate_frame(frame, (5, 6, 20, 30), flagged=True, frame_index=3)
     want = np.zeros_like(frame)

@@ -13,6 +13,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
+from truely_tpu.ops import boxes as jboxes
 from truely_tpu.ops import nms as jnms
 from truely_tpu.ops import resize as jresize
 from truely_tpu.ops import temporal as jtemporal
@@ -369,3 +370,76 @@ def test_weighted_score_bit_equal(args):
     ref = int(jtemporal.weighted_score(jnp.int32(flagged), jnp.int32(final), jnp.int32(total),
                                        jnp.int32(frames), jnp.int32(fps)))
     assert ttemporal.weighted_score(flagged, final, total, frames, fps) == ref
+
+
+# ---------------------------------------------------------------------------
+# Public names of the JAX ops modules: clip_boxes, nms_masked, topk_select,
+# resize_bilinear, resize_area_u8
+
+
+def test_clip_boxes_bit_equal():
+    boxes = np.random.default_rng(11).uniform(-40, 160, (3, 7, 4)).astype(np.float32)
+    np.testing.assert_array_equal(tboxes.clip_boxes(t(boxes), 120, 90).numpy(),
+                                  np.asarray(jboxes.clip_boxes(jnp.asarray(boxes), 120, 90)))
+
+
+@pytest.mark.parametrize("case", ["random", "ties", "chain"])
+@pytest.mark.parametrize("method", ["union", "min"])
+def test_nms_masked_equals_jax(case, method):
+    """One image: the exact greedy NMS of ``truely_tpu/ops/nms.py:nms_masked``."""
+    boxes, scores, valid, _ = nms_case(13, ties=case == "ties", chain=case == "chain", b=1,
+                                       k=64)
+    ref = np.asarray(jnms.nms_masked(jnp.asarray(boxes[0]), jnp.asarray(scores[0]),
+                                     jnp.asarray(valid[0]), iou_threshold=0.4, method=method))
+    ours = tnms.nms_masked(t(boxes[0]), t(scores[0]), t(valid[0]), iou_threshold=0.4,
+                           method=method).numpy()
+    np.testing.assert_array_equal(ours, ref)
+
+
+@pytest.mark.parametrize("k_out", [1, 10, 40])
+def test_topk_select_equals_jax(k_out):
+    rng = np.random.default_rng(k_out)
+    scores = (np.round(rng.random(40) * 6) / 6).astype(np.float32)   # ties
+    valid = rng.random(40) > 0.3
+    ref_idx, ref_valid = (np.asarray(a) for a in jnms.topk_select(
+        jnp.asarray(scores), jnp.asarray(valid), k_out))
+    idx, ok = (a.numpy() for a in tnms.topk_select(t(scores), t(valid), k_out))
+    np.testing.assert_array_equal(ok, ref_valid)
+    np.testing.assert_array_equal(idx[ok], ref_idx[ref_valid])
+
+
+@pytest.mark.parametrize("out_hw", [(20, 31), (45, 60), (90, 121)])
+def test_resize_bilinear_close_to_jax(out_hw):
+    """float32 matrix products that sum in another order: within 1e-4 on
+    pixel values up to 255."""
+    x = np.random.default_rng(12).integers(0, 256, (2, 45, 61, 3), np.uint8)
+    ours = tresize.resize_bilinear(t(x), out_hw).numpy()
+    ref = np.asarray(jresize.resize_bilinear(jnp.asarray(x), out_hw))
+    assert ours.dtype == np.float32 and ours.shape == ref.shape
+    np.testing.assert_allclose(ours, ref, atol=1e-4, rtol=0)
+
+
+@pytest.mark.parametrize("hw", [(135, 241), (64, 88)])
+def test_resize_area_u8_bit_equal(hw):
+    """Every pyramid level: exact integer bin sums and one IEEE division, in
+    bfloat16 equal to the JAX function's bits as it runs op by op (the
+    float32 averaging path cast to bfloat16 differs from it in the last bit
+    of some values).  Under ``jax.jit`` XLA turns the division by the
+    constant area into a multiply by its reciprocal, which rounds otherwise
+    at some levels (ROADMAP §C); the port keeps the function's division."""
+    from truely_tpu_torch.pipeline.pyramid import pyramid_schedule
+
+    h, w = hw
+    x = np.random.default_rng(h).integers(0, 256, (1, h, w, 3), np.uint8)
+    for lvl in pyramid_schedule(h, w):
+        ours = tresize.resize_area_u8(t(x), (lvl.height, lvl.width))
+        ref = jresize.resize_area_u8(jnp.asarray(x), (lvl.height, lvl.width))
+        assert ours.dtype == torch.bfloat16
+        np.testing.assert_array_equal(ours.float().numpy(), np.asarray(ref.astype(jnp.float32)))
+
+
+def test_resize_area_u8_rejects_wide_bins_and_float_input():
+    with pytest.raises(ValueError, match="exceed 127"):
+        tresize.resize_area_u8(torch.zeros((1, 256, 20, 3), dtype=torch.uint8), (2, 20))
+    with pytest.raises(ValueError, match="uint8"):
+        tresize.resize_area_u8(torch.zeros((1, 20, 20, 3)), (10, 10))

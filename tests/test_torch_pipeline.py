@@ -87,6 +87,33 @@ def test_detect_faces_matches_jax_production_capacities(trees):
                                    np.asarray(ref.landmarks)[b, orf], atol=1e-2)
 
 
+def test_exact_bf16_pyramid_is_jax_resize_area_u8(monkeypatch):
+    """bf16 without the cascade (``--exact-pyramid``): P-Net sees, level by
+    level, the JAX package's ``resize_area_u8`` of the frames (its
+    ``use_i8_resize`` branch of ``_stage1``) run op by op, bit for bit; the
+    float32 averaging cast to bf16 differs in the last bit of some values."""
+    from truely_tpu.ops.resize import resize_area_u8 as j_resize_area_u8
+    from truely_tpu_torch.models.weights import init_params
+    from truely_tpu_torch.pipeline import mtcnn as tmtcnn
+    from truely_tpu_torch.pipeline.pyramid import pyramid_schedule
+
+    frames = smooth_frames(3, 2, 96, 128) + np.random.default_rng(3).integers(
+        0, 3, (2, 96, 128, 3), np.uint8)
+    nets = MTCNNNets(*(init_params(n) for n in ("pnet", "rnet", "onet")))
+    seen = []
+    trunk = nets.pnet.trunk
+    monkeypatch.setattr(nets.pnet, "trunk", lambda x, dtype: seen.append(x) or trunk(x, dtype))
+    with torch.no_grad():
+        tmtcnn._stage1(nets, torch.from_numpy(frames), MTCNNConfig(pyramid_cascade=False),
+                       torch.bfloat16)
+    levels = pyramid_schedule(96, 128)
+    assert len(seen) == len(levels) == 5
+    for x, lvl in zip(seen, levels):
+        ref = j_resize_area_u8(jnp.asarray(frames), (lvl.height, lvl.width))
+        want = (np.asarray(ref.astype(jnp.float32)) - np.float32(127.5)) * np.float32(0.0078125)
+        np.testing.assert_array_equal(x.numpy(), want)
+
+
 @pytest.fixture(scope="module")
 def detectors(trees):
     jcfg = JDetectorConfig(frame_batch=4, compute_dtype="float32",

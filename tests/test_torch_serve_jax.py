@@ -3,7 +3,8 @@ detector with the same weights (the JAX package's seeded trees, carried
 into the port with ``params=``), at float32 with the small cascade of
 ``tests/test_torch_propagate.py``, on the CPU.
 
-The clips are mp4v files, which both packages read through cv2.  The same
+The clips are mp4v files, which the JAX package reads through cv2 and the
+port through its native ``videodec`` where that is built (else cv2).  The same
 ``/analyze-video`` and ``/analyze-combined`` bodies give the same JSON,
 ``resultId`` aside.  Three ``/jobs/analyze-video`` jobs queued together run
 as one group in one device step at ``frame_batch=96`` and score as the
@@ -34,6 +35,7 @@ from truely_tpu.serve.app import TruelyServer as JTruelyServer
 from truely_tpu.serve.http import Request as JRequest
 from truely_tpu.serve.results import ResultStore as JResultStore
 from truely_tpu_torch.config import DetectorConfig, MTCNNConfig
+from truely_tpu_torch.media import videodec
 from truely_tpu_torch.pipeline.detector import Detector
 from truely_tpu_torch.serve.app import TruelyServer
 from truely_tpu_torch.serve.http import Request
@@ -122,6 +124,13 @@ def run_group(server, request_cls, paths):
     return jobs
 
 
+def ingest(step):
+    """The name of ``step`` as the port runs it on the mp4v clips: the
+    packed-I420 step where its native ``videodec`` is built and reads
+    them, else the BGR step (cv2)."""
+    return step + "_yuv" if videodec.available() else step
+
+
 def count_steps(det):
     """Record (step name, rows) of every frame step ``det`` runs."""
     seen = []
@@ -177,7 +186,7 @@ def test_grouped_jobs_match_jax_and_solo(single, clips, tmp_path):
         jobs = run_group(server, Request, copies(clips, tmp_path, "port"))
     finally:
         del det._run
-    assert steps == [("frame_step", 96)]   # one device step for the three videos
+    assert steps == [(ingest("frame_step"), 96)]   # one device step for the three videos
     assert [j.result["fakeScore"] for j in jobs] == [j.result["fakeScore"] for j in jjobs] == solo
     assert len(set(solo)) > 1 and all(s > 0 for s in solo)
     for j in jobs:
@@ -195,7 +204,7 @@ def test_grouped_multiface_jobs_match_jax(trees, clips, tmp_path):
     jjobs = run_group(jserver, JRequest, copies(clips, tmp_path, "jax"))
     steps = count_steps(server.detector)
     jobs = run_group(server, Request, copies(clips, tmp_path, "port"))
-    assert steps == [("multiface_step", 96)]
+    assert steps == [(ingest("multiface_step"), 96)]
     got = [(j.result["fakeScore"], j.result["trackScores"]) for j in jobs]
     assert got == [(j.result["fakeScore"], j.result["trackScores"]) for j in jjobs]
     assert [t for _, t in got] == solo and any(max(t) > 0 for t in solo)
@@ -211,7 +220,7 @@ def test_multiface_auto_group_degrades_to_full_cadence(trees, clips, tmp_path):
     solo = [full.analyze_video_multiface(p) for p in clips[:2]]
     steps = count_steps(server.detector)
     jobs = run_group(server, Request, copies(clips[:2], tmp_path, "auto"))
-    assert steps == [("multiface_step", 96)]
+    assert steps == [(ingest("multiface_step"), 96)]
     assert [(j.result["fakeScore"], j.result["trackScores"]) for j in jobs] == [
         (s[0], s[1].tolist()) for s in solo]
     assert any(s[0] > 0 for s in solo)

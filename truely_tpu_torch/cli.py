@@ -276,9 +276,9 @@ def cmd_serve(args) -> int:
     if detector is None:
         return 1
     _warn_if_seeded(detector)
-    app = serve_app.TruelyServer(
-        ServerConfig(host=args.host, port=args.port,
-                     warmup_resolutions=tuple(args.warmup or ())),
+    app = serve_app.create_app(
+        config=ServerConfig(host=args.host, port=args.port,
+                            warmup_resolutions=tuple(args.warmup or ())),
         detector=detector,
     )
     app.serve()

@@ -101,8 +101,9 @@ class DetectorConfig:
     # I420 planes).  Decisions are the same in both modes.
     draw_mode: str = "all"
     # Read files as packed I420 and convert on the device (kernel K1) when
-    # the reader can (media/decode.py: an uncompressed I420 AVI); other
-    # files decode to BGR on the host.  Results are the same either way.
+    # the reader can (media/decode.py: an uncompressed I420 AVI, or an
+    # eligible stream through the native libav decoder); other files decode
+    # to BGR on the host.  Results are the same either way.
     yuv_ingest: bool = True
 
     def sample_interval(self, fps: int) -> int:
@@ -127,3 +128,16 @@ class ServerConfig:
     # the allocator's first growth), so the first /analyze-* request does
     # not pay them.  /health reports progress.
     warmup_resolutions: tuple = ()
+
+
+@dataclasses.dataclass(frozen=True)
+class AgentsConfig:
+    """Fact-check agent parameters (reference server/web/): the defaults of
+    ``agents/transcribe.py``, ``agents/judge.py`` and ``agents/search.py``."""
+
+    groq_model: str = "whisper-large-v3-turbo"
+    gemini_model: str = "gemini-2.5-flash"
+    gemini_temperature: float = 0.2
+    tavily_max_results: int = 5
+    search_query_max_chars: int = 350
+    fallback_query_words: int = 30

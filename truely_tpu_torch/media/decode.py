@@ -6,19 +6,29 @@ yields *segments*: the frames of a stretch of the video (for the annotated
 re-encode) and a padded batch of its sampled frames, ready for one device
 step.
 
-The file's header chooses the decoder.  An uncompressed I420 AVI goes
-through ``rawavi`` on every machine: with ``yuv=True`` the sampled frames
-are packed I420, read straight into the staging batch and converted on the
-device (kernel K1), and unsampled frames are never read unless the caller
-wants host frames; with ``yuv=False`` every frame is converted to BGR on
-the host (``native.i420_to_bgr_host``, byte-identical to cv2's decode).
-Any other file goes through cv2, to BGR, and needs cv2: without it only
-the I420 AVI can be read.  Once ``rawavi`` has taken a file, a parse error
-raises; nothing is retried through cv2.
+Three decoders, chosen in this order (``VideoReader.decoder`` names the
+one that runs):
+
+- ``rawavi``: an uncompressed I420 AVI, on every machine;
+- ``videodec``: with ``yuv=True``, any file libav reads whose stream is
+  eligible for the exact conversion (8-bit yuv420p, W even, H % 4 == 0,
+  untagged or BT.601 colour space, limited or untagged range), where the
+  libav headers let ``media/videodec.py`` be built;
+- cv2, to BGR, for everything else (needed for it).
+
+With packed I420 (the first two, ``yuv=True``) the sampled frames are read
+straight into the staging batch and converted on the device (kernel K1),
+and unsampled frames are decoded without export (``videodec.skip``) or
+not read at all (``rawavi``) unless the caller wants host frames.  BGR
+frames of those two come from ``native.i420_to_bgr_host``, byte-identical
+to cv2's decode.  The metadata comes from cv2 where it is installed, as in
+the JAX package, else from the decoder.  Once ``rawavi`` has taken a file,
+a parse error raises; nothing is retried through another decoder.
 """
 
 from __future__ import annotations
 
+import itertools
 import logging
 import queue
 import threading
@@ -27,11 +37,11 @@ from typing import Iterator, List, Optional, Tuple
 
 import numpy as np
 
-from truely_tpu_torch.media import native, rawavi
+from truely_tpu_torch.media import native, rawavi, videodec
 
 try:
     import cv2
-except ImportError:  # rawavi files only
+except ImportError:  # rawavi, and videodec where it is built, only
     cv2 = None
 
 
@@ -61,15 +71,47 @@ class Segment:
     frames_i420: bool = False       # ``frames`` holds packed I420 pictures
 
 
+# swscale tag values for which the exact conversion (K1, ``native``) is the
+# one cv2 applies: untagged or BT.601-family colour space, limited ("tv") or
+# untagged range.  Anything else (bt709 tags, full range) takes the cv2
+# path, as in the JAX package.
+_YUV_OK_SPACES = frozenset({"unknown", "bt470bg", "smpte170m"})
+_YUV_OK_RANGES = frozenset({"unknown", "tv"})
+
+
+def _probe_yuv(path: str, meta: Optional[VideoMeta]):
+    """An open ``videodec`` handle of ``path`` and its metadata if the
+    library is built and the stream is eligible for the exact conversion
+    (``meta``, cv2's, must agree on the size), else None.  Raises only if
+    the library fails to build where the libav headers are."""
+    if not videodec.available():
+        return None
+    try:
+        hnd, w, h, fps_num, fps_den, nb = videodec.open(path)
+    except IOError:
+        return None
+    space, rng = videodec.colorinfo(hnd)
+    if (videodec.pixfmt(hnd) == "yuv420p" and w % 2 == 0
+            # H % 4, not just % 2: the packed (H*3//2, W) layout holds the
+            # chroma planes in whole rows only when H/4 is integral.
+            and h % 4 == 0 and space in _YUV_OK_SPACES and rng in _YUV_OK_RANGES
+            and (meta is None or (w, h) == (meta.width, meta.height))
+            and fps_num > 0 and fps_den > 0):
+        return hnd, VideoMeta(width=w, height=h, fps=int(fps_num / fps_den),
+                              fps_exact=fps_num / fps_den, frame_count=nb)
+    videodec.close(hnd)
+    return None
+
+
 class VideoReader:
     """Iterates decode segments with background prefetch.
 
-    ``yuv=True`` asks for packed-I420 segments, which only the ``rawavi``
-    decoder gives (``yuv_active``); ``host_frames=True`` then also carries
-    the packed picture of every frame of a segment (``frames_i420``), so
-    that a writer can re-encode the frames it does not draw on without a
-    colour conversion.  Otherwise, and for every file cv2 decodes, segments
-    carry BGR frames (RGB with ``rgb=True``)."""
+    ``yuv=True`` asks for packed-I420 segments, which the ``rawavi`` and
+    ``videodec`` decoders give (``yuv_active``); ``host_frames=True`` then
+    also carries the packed picture of every frame of a segment
+    (``frames_i420``), so that a writer can re-encode the frames it does
+    not draw on without a colour conversion.  Otherwise, and for every file
+    cv2 decodes, segments carry BGR frames (RGB with ``rgb=True``)."""
 
     def __init__(self, path: str, *, rgb: bool = False, prefetch: int = 2,
                  yuv: bool = False, host_frames: bool = False):
@@ -78,35 +120,53 @@ class VideoReader:
         self._active_stop: Optional[threading.Event] = None
         self._active_thread: Optional[threading.Thread] = None
         self._avi: Optional[rawavi.RawAviReader] = None
+        self._vd: Optional[videodec.Handle] = None
         self._cap = None
         try:
             self._avi = rawavi.RawAviReader(path)
         except rawavi.NotEligible as e:
-            if cv2 is None:
-                raise IOError(f"{e}; decoding it needs cv2, which is not installed (without "
-                              "it only uncompressed I420 AVI files are read)") from None
+            not_avi = e
         if self._avi is not None:
             info = self._avi.info
+            self.decoder = "rawavi"
             self.meta = VideoMeta(width=info.width, height=info.height,
                                   fps=int(info.rate / info.scale),
                                   fps_exact=info.rate / info.scale,
                                   frame_count=self._avi.frame_count)
         else:
-            self._cap = cv2.VideoCapture(path)
-            if not self._cap.isOpened():
-                raise IOError(f"could not open video: {path}")
-            self.meta = VideoMeta(
-                width=int(self._cap.get(cv2.CAP_PROP_FRAME_WIDTH)),
-                height=int(self._cap.get(cv2.CAP_PROP_FRAME_HEIGHT)),
-                fps=int(self._cap.get(cv2.CAP_PROP_FPS)),
-                fps_exact=float(self._cap.get(cv2.CAP_PROP_FPS)),
-                frame_count=int(self._cap.get(cv2.CAP_PROP_FRAME_COUNT)),
-            )
+            meta = None
+            if cv2 is not None:
+                self._cap = cv2.VideoCapture(path)
+                if not self._cap.isOpened():
+                    self._cap.release()
+                    raise IOError(f"could not open video: {path}")
+                meta = VideoMeta(
+                    width=int(self._cap.get(cv2.CAP_PROP_FRAME_WIDTH)),
+                    height=int(self._cap.get(cv2.CAP_PROP_FRAME_HEIGHT)),
+                    fps=int(self._cap.get(cv2.CAP_PROP_FPS)),
+                    fps_exact=float(self._cap.get(cv2.CAP_PROP_FPS)),
+                    frame_count=int(self._cap.get(cv2.CAP_PROP_FRAME_COUNT)),
+                )
+            probed = _probe_yuv(path, meta) if yuv else None
+            if probed is not None:
+                self._vd, vd_meta = probed
+                self.decoder = "videodec"
+                if self._cap is not None:   # cv2 gave the metadata; videodec decodes
+                    self._cap.release()
+                    self._cap = None
+                self.meta = meta or vd_meta
+            elif self._cap is None:
+                raise IOError(f"{not_avi}; decoding it needs cv2, which is not installed "
+                              "(without it only uncompressed I420 AVI files, and with yuv=True "
+                              "the streams the native decoder takes, are read)")
+            else:
+                self.decoder = "cv2"
+                self.meta = meta
         if self.meta.width <= 0 or self.meta.height <= 0 or self.meta.fps <= 0:
             self._release()
             raise IOError(f"invalid video properties: width={self.meta.width} "
                           f"height={self.meta.height} fps={self.meta.fps}")
-        self.yuv_active = yuv and self._avi is not None
+        self.yuv_active = yuv and self.decoder != "cv2"
         self._host_frames = host_frames and self.yuv_active
 
     def _release(self) -> None:
@@ -116,6 +176,9 @@ class VideoReader:
         if self._avi is not None:
             self._avi.close()
             self._avi = None
+        if self._vd is not None:
+            vd, self._vd = self._vd, None
+            videodec.close(vd)
 
     def close(self) -> None:
         # Stop an in-flight prefetch producer BEFORE releasing the decoder:
@@ -144,12 +207,34 @@ class VideoReader:
 
     # ------------------------------------------------------------------
 
+    def _pictures(self):
+        """(read(idx, buf) -> bool, skip(idx) -> bool) over the packed I420
+        pictures in order, for ``rawavi`` (random access: an unsampled
+        frame costs nothing) and ``videodec`` (decoded in sequence); each
+        gives False at the end."""
+        if self._avi is not None:
+            avi = self._avi
+
+            def read(idx: int, buf: np.ndarray) -> bool:
+                if idx >= avi.frame_count:
+                    return False
+                avi.read_into(idx, buf)
+                return True
+
+            return read, lambda idx: idx < avi.frame_count
+        vd = self._vd
+        return (lambda idx, buf: videodec.read(vd, buf)), (lambda idx: videodec.skip(vd))
+
     def frames(self) -> Iterator[Tuple[int, np.ndarray]]:
         """Iterate (frame_index, BGR or RGB frame) pairs to EOF."""
-        if self._avi is not None:
-            for k in range(self._avi.frame_count):
-                yield k, native.i420_to_bgr_host(self._avi.read(k), rgb=self._rgb)
-            return
+        if self._cap is None:
+            read, _ = self._pictures()
+            rows, w = self.meta.height * 3 // 2, self.meta.width
+            for idx in itertools.count():
+                buf = np.empty((rows, w), np.uint8)
+                if not read(idx, buf):
+                    return
+                yield idx, native.i420_to_bgr_host(buf, rgb=self._rgb)
         idx = 0
         while True:
             ret, frame = self._cap.read()
@@ -163,12 +248,22 @@ class VideoReader:
     def yuv_frames(self, sample_interval: int = 1) -> Iterator[Tuple[int, Optional[np.ndarray]]]:
         """Iterate (frame_index, packed I420) pairs to EOF (YUV mode only;
         packed is (H*3//2, W) uint8).  Frames whose index is not a multiple
-        of ``sample_interval`` are not read and come as (index, None), so
-        the caller keeps an honest frame count at no cost."""
+        of ``sample_interval`` are skipped without export and come as
+        (index, None), so the caller keeps an honest frame count."""
         if not self.yuv_active:
             raise RuntimeError("yuv_frames() requires yuv_active")
-        for k in range(self._avi.frame_count):
-            yield k, (self._avi.read(k) if k % sample_interval == 0 else None)
+        read, skip = self._pictures()
+        rows, w = self.meta.height * 3 // 2, self.meta.width
+        for idx in itertools.count():
+            if idx % sample_interval == 0:
+                buf = np.empty((rows, w), np.uint8)
+                if not read(idx, buf):
+                    return
+                yield idx, buf
+            elif not skip(idx):
+                return
+            else:
+                yield idx, None
 
     def segments(self, sample_interval: int, batch: int) -> Iterator[Segment]:
         """Yield segments of exactly ``batch`` sampled frames each (the last
@@ -212,7 +307,8 @@ class VideoReader:
                 put(tail)
 
         def yuv_producer():
-            avi, host = self._avi, self._host_frames
+            read, skip = self._pictures()
+            host = self._host_frames
             rows, w = self.meta.height * 3 // 2, self.meta.width
             try:
                 stack = np.zeros((batch, rows, w), np.uint8)
@@ -233,19 +329,25 @@ class VideoReader:
                     sampled_idx.clear()
                     return seg
 
-                for idx in range(avi.frame_count):
+                for idx in itertools.count():
                     if stop.is_set():
                         return
                     if idx % sample_interval == 0:
+                        buf = stack[len(sampled_idx)]   # read straight into the batch
+                        if not read(idx, buf):
+                            break
                         if not release():
                             return
-                        buf = stack[len(sampled_idx)]   # read straight into the batch
-                        avi.read_into(idx, buf)
                         sampled_idx.append(idx)
                         if host:
                             cur_frames.append(buf)      # a view; the Segment keeps it
                     elif host:
-                        cur_frames.append(avi.read(idx))
+                        buf = np.empty((rows, w), np.uint8)
+                        if not read(idx, buf):
+                            break
+                        cur_frames.append(buf)
+                    elif not skip(idx):
+                        break
                     cur_idx.append(idx)
                     if len(sampled_idx) == batch:
                         held.append(take())

@@ -1,8 +1,8 @@
 """Uncompressed I420 AVI: a reader and a writer in plain Python.
 
 It needs neither cv2 nor libav, so this is the one container the port
-reads and writes wherever it runs.  It takes the place of the JAX
-package's native libav decoder (``native/videodec.cpp``) for one codec: a
+reads and writes wherever it runs, beside the native libav decoder
+(``media/videodec.py``) where that is built.  It reads one codec: a
 RIFF/AVI file with an uncompressed video stream whose fourcc is ``I420``
 or ``IYUV``, 12 bits a pixel.  Each video chunk holds one packed I420
 picture, which is exactly the (H*3//2, W) uint8 layout the device steps

@@ -7,6 +7,7 @@ from __future__ import annotations
 
 from typing import Optional
 
+import numpy as np
 import torch
 import torch.nn as nn
 
@@ -43,3 +44,24 @@ class Landmark68(nn.Module):
             h = blk(h, dtype)
         h = torch.relu(L.dense(self.dense_hidden, h.mean(dim=(2, 3)), dtype))
         return L.dense(self.dense_out, h, dtype).reshape(-1, 68, 2)
+
+
+def synthetic_landmark_batch(rng: np.random.Generator, batch: int, size: int = 80):
+    """The synthetic landmark task of ``truely_tpu/models/landmark68.py``:
+    random affine placements of a canonical 68-point template (a circle)
+    drawn as bright dots on dark noise, from the numpy generator ``rng``.
+    The stand-in training and quality data while no real landmark set is
+    available.  Returns (crops (B, S, S, 3) float32 in [0, 1], landmarks
+    (B, 68, 2) in [0, 1] crop coordinates)."""
+    t = np.linspace(0, 2 * np.pi, 68)
+    template = np.stack([0.5 + 0.35 * np.cos(t), 0.5 + 0.35 * np.sin(t)], axis=1)
+    crops = rng.integers(0, 80, (batch, size, size, 3)).astype(np.uint8)
+    lmks = np.zeros((batch, 68, 2), np.float32)
+    for i in range(batch):
+        scale = rng.uniform(0.6, 1.0)
+        off = rng.uniform(0.0, 1.0 - scale, 2)
+        pts = template * scale + off
+        lmks[i] = pts
+        px = np.clip((pts * size).astype(int), 0, size - 1)
+        crops[i, px[:, 1], px[:, 0]] = 255
+    return crops.astype(np.float32) / 255.0, lmks

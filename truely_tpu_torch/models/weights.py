@@ -7,13 +7,16 @@ upstream module names.  The modules here use the same names, so loading is
 a walk: conv ``{"w": HWIO, "b"}`` -> ``nn.Conv2d`` (OIHW); dense
 ``{"w": (in, out), "b"}`` -> ``nn.Linear`` ((out, in)); ``{"gamma",
 "beta", "mean", "var"}`` -> ``FrozenBN``; ``{"alpha"}`` -> ``nn.PReLU``.
+``convert_torch_state_dict`` reads the public facenet-pytorch checkpoints
+(``python -m truely_tpu_torch.models.convert`` writes them as ``.npz``).
 """
 
 from __future__ import annotations
 
+import copy
 import math
 import os
-from typing import Dict, Mapping, Optional, Set, Tuple
+from typing import Dict, Mapping, Optional, Set, Tuple, Union
 
 import numpy as np
 import torch
@@ -153,6 +156,71 @@ def params_to_numpy(module: nn.Module, grads: bool = False):
         return {k: walk(c) for k, c in m.named_children()}
 
     return walk(module)
+
+
+def convert_torch_state_dict(name_or_module: Union[str, nn.Module],
+                             state_dict: Mapping[str, object]) -> nn.Module:
+    """The net (a name of ``NETS``, or a module to fill) with the weights of
+    an upstream facenet-pytorch state dict (torch tensors or numpy arrays),
+    as ``truely_tpu.models.weights.convert_torch_state_dict`` converts it:
+    the module path is the dotted torch name; a conv or dense layer takes
+    ``.weight`` (and ``.bias`` where it has one), a batchnorm ``.weight``,
+    ``.bias``, ``.running_mean`` and ``.running_var``, a PReLU ``.weight``.
+    Keys it does not need (``logits.*``, ``num_batches_tracked``) are
+    ignored.  Raises KeyError on a missing entry and ValueError on a shape
+    mismatch."""
+    module = NETS[name_or_module]() if isinstance(name_or_module, str) else name_or_module
+
+    def fetch(key: str, dst: torch.Tensor) -> None:
+        if key not in state_dict:
+            raise KeyError(f"missing key in torch state_dict: {key}")
+        v = state_dict[key]
+        if isinstance(v, torch.Tensor):
+            v = v.detach().cpu().numpy()
+        _copy(dst, v, key)
+
+    for name, m in module.named_modules():
+        if isinstance(m, (nn.Conv2d, nn.Linear)):
+            fetch(f"{name}.weight", m.weight)
+            if m.bias is not None:
+                fetch(f"{name}.bias", m.bias)
+        elif isinstance(m, FrozenBN):
+            for ours, theirs in (("gamma", "weight"), ("beta", "bias"), ("mean", "running_mean"),
+                                 ("var", "running_var")):
+                fetch(f"{name}.{theirs}", getattr(m, ours))
+        elif isinstance(m, nn.PReLU):
+            fetch(f"{name}.weight", m.weight)
+    return module.eval()
+
+
+def fold_batchnorm(module: nn.Module, eps: float = 1e-3) -> nn.Module:
+    """A copy of ``module`` with every inference batchnorm that follows a
+    bias-less convolution (a module holding ``conv`` and ``bn``) folded
+    into it, as ``truely_tpu.models.weights.fold_batchnorm`` folds a tree:
+    ``w' = w * gamma / sqrt(var + eps)`` per output channel, ``b' = beta -
+    mean * gamma / sqrt(var + eps)``, and the batchnorm made an identity
+    (gamma 1, beta 0, mean 0, var 1 - eps).  The arithmetic is numpy's
+    float32, as in the JAX function (PyTorch's CPU ``sqrt`` is not always
+    correctly rounded), so the folded leaves equal the JAX fold's.  A
+    utility for export; the Detector does not use it."""
+    module = copy.deepcopy(module)
+    for m in module.modules():
+        conv, bn = getattr(m, "conv", None), getattr(m, "bn", None)
+        if not (isinstance(conv, nn.Conv2d) and conv.bias is None and isinstance(bn, FrozenBN)):
+            continue
+        gamma, beta, mean, var = (t.detach().cpu().numpy() for t in (bn.gamma, bn.beta, bn.mean,
+                                                                      bn.var))
+        scale = gamma / np.sqrt(var + np.float32(eps))
+        w = conv.weight.detach().cpu().numpy() * scale[:, None, None, None]  # OIHW: per O
+        dev = conv.weight.device
+        with torch.no_grad():
+            conv.weight.copy_(torch.from_numpy(w))
+            conv.bias = nn.Parameter(torch.from_numpy(beta - mean * scale).to(dev))
+            bn.gamma.fill_(1.0)
+            bn.beta.zero_()
+            bn.mean.zero_()
+            bn.var.copy_(torch.ones_like(bn.var) - eps)
+    return module
 
 
 def init_params(name: str, seed: Optional[int] = None) -> nn.Module:

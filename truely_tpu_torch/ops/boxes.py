@@ -47,6 +47,12 @@ def pad_crop_bounds(boxes: torch.Tensor, width: int, height: int) -> torch.Tenso
     return torch.stack([x0, y0, x1, y1], dim=-1)
 
 
+def clip_boxes(boxes: torch.Tensor, width: int, height: int) -> torch.Tensor:
+    """Clamp float boxes into [0, W] x [0, H] (reference model.py:50-53)."""
+    return torch.stack([boxes[..., 0].clamp(0, width), boxes[..., 1].clamp(0, height),
+                        boxes[..., 2].clamp(0, width), boxes[..., 3].clamp(0, height)], dim=-1)
+
+
 def box_area(boxes: torch.Tensor, plus_one: bool = True) -> torch.Tensor:
     off = 1.0 if plus_one else 0.0
     return (boxes[..., 2] - boxes[..., 0] + off) * (boxes[..., 3] - boxes[..., 1] + off)

@@ -4,7 +4,8 @@ Each ``csrc/<name>.cu`` has a plain C interface and no PyTorch headers, so
 ``nvcc`` builds it in seconds; the sources compile in parallel, one
 process each.  The libraries go to ``truely_tpu_torch/_build/`` (listed in
 ``.gitignore``), named by a hash of the source, the shared header and the
-flags, so a changed source rebuilds and an unchanged one is reused.
+flags, so a changed source rebuilds and an unchanged one is reused: the
+build cache of ``media/host_build.py``, which builds the host C++.
 
 Flags: ``sm_90a`` (Hopper), ``-O3``, and ``-fmad=false`` so no multiply and
 add fuse into an FMA: the kernels must be bit-equal to their plain PyTorch
@@ -15,18 +16,17 @@ division stays IEEE round-to-nearest.
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import os
 import shutil
-import subprocess
 import threading
 from pathlib import Path
 from typing import Callable, Dict, Iterable, Tuple
 
 import torch
 
+from truely_tpu_torch.media.host_build import compile_all, library_path
+
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
-BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
 SOURCES = ("yuv", "nms", "crop_area", "crop_bilinear", "crop_area_fused")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -51,39 +51,22 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    h = hashlib.sha256()
-    for part in (CSRC / f"{name}.cu", CSRC / "common.cuh"):
-        h.update(part.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
+    return library_path(name, (CSRC / f"{name}.cu", CSRC / "common.cuh"), NVCC_FLAGS)
 
 
 def build(names: Iterable[str] = SOURCES) -> None:
     """Compile every named source whose library is missing, all in
     parallel.  Raises with nvcc's output if any build fails."""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    procs = {}
+    jobs = {}
     nvcc = None
     for name in names:
         target = _target(name)
         if target.exists():
             continue
         nvcc = nvcc or _nvcc()
-        tmp = target.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                        stderr=subprocess.STDOUT, text=True),
-                       tmp, target)
-    failed = []
-    for name, (proc, tmp, target) in procs.items():
-        out, _ = proc.communicate()
-        if proc.returncode != 0:
-            failed.append(f"--- {name} ---\n{out}")
-            continue
-        os.replace(tmp, target)  # atomic: a reader never sees half a library
-        build_log[name] = out
-    if failed:
-        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+        jobs[name] = (target, lambda tmp, name=name: [nvcc, *NVCC_FLAGS, "-o", str(tmp),
+                                                      str(CSRC / f"{name}.cu")])
+    build_log.update(compile_all(jobs, "nvcc"))
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -31,6 +31,7 @@ import torch
 
 from truely_tpu_torch.ops import cuda_build
 from truely_tpu_torch.ops.boxes import iou_matrix
+from truely_tpu_torch.ops.topk import exact_topk_lastdim
 
 NEG_INF = -1e30
 MAX_K = 256  # the kernel's shared-memory capacity
@@ -144,3 +145,26 @@ def nms_masked_batch(boxes, scores, valid, *, iou_threshold: float,
 
 
 nms_masked_batch.launches = 0
+
+
+def nms_masked(boxes: torch.Tensor, scores: torch.Tensor, valid: torch.Tensor, *,
+               iou_threshold: float, method: str = "union") -> torch.Tensor:
+    """Exact greedy NMS of one image's (K, 4) boxes with a validity mask
+    (``truely_tpu/ops/nms.py:nms_masked``): the (K,) bool keep mask in the
+    original order; invalid entries are never kept, ties go to the lower
+    index.  :func:`nms_masked_batch` over a batch of one, with no round
+    cap (kernel K2 on CUDA tensors, for K <= MAX_K)."""
+    return nms_masked_batch(boxes[None], scores[None], valid[None], iou_threshold=iou_threshold,
+                            method=method)[0]
+
+
+def topk_select(scores: torch.Tensor, valid: torch.Tensor, k_out: int
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Up to ``k_out`` highest-score valid entries of (..., K) scores
+    (``truely_tpu/ops/nms.py:topk_select``): (indices (..., k_out),
+    valid_out (..., k_out)); an invalid slot's index is to be ignored."""
+    masked = torch.where(valid, scores, NEG_INF)
+    flat = masked.reshape(-1, masked.shape[-1])
+    vals, idx = exact_topk_lastdim(flat, k_out)
+    shape = masked.shape[:-1] + (idx.shape[-1],)
+    return idx.reshape(shape), (vals > NEG_INF / 2).reshape(shape)

@@ -4,6 +4,10 @@
   pooling) of whole frames, the pyramid levels, as two separable averaging
   matmuls.  These are plain matrix products (the JAX package leaves them to
   XLA too), in float32, or in bf16 on the cascaded production pyramid.
+- ``resize_area_u8``: the same bins over uint8 frames with exact integer
+  bin sums and one division, to bfloat16: the bf16 pyramid when it is not
+  cascaded (``--exact-pyramid``).
+- ``resize_bilinear``: cv2 INTER_LINEAR of whole frames (static sizes).
 - ``crop_resize_area``: the same bins over K dynamic boxes per frame, the
   R-Net/O-Net stage crops: kernel K3 and its plain version, in two steps:
   ``crop_area_integral`` (the prep, once per frame step: the integral image
@@ -63,6 +67,75 @@ def resize_area(x: torch.Tensor, out_hw: Tuple[int, int],
     y = torch.matmul(rh, x.to(dtype).reshape(b, h, w * c))           # contract H
     y = y.reshape(b, oh, w, c).transpose(2, 3)                        # (B, OH, C, W)
     return torch.matmul(y, rw.t()).transpose(2, 3)                    # contract W
+
+
+def _sum_matrix(in_size: int, out_size: int) -> Tuple[np.ndarray, np.ndarray]:
+    """(out_size, in_size) float32 0/1 bin-membership matrix, adaptive-pool
+    bins, and the float32 bin widths."""
+    mat = np.zeros((out_size, in_size), dtype=np.float32)
+    widths = np.zeros((out_size,), dtype=np.float32)
+    for i in range(out_size):
+        s = (i * in_size) // out_size
+        e = -((-(i + 1) * in_size) // out_size)
+        mat[i, s:e] = 1.0
+        widths[i] = e - s
+    return mat, widths
+
+
+def resize_area_u8(x: torch.Tensor, out_hw: Tuple[int, int]) -> torch.Tensor:
+    """Area resize of (B, H, W, C) uint8 frames to (B, OH, OW, C) bfloat16,
+    as ``truely_tpu/ops/resize.py:resize_area_u8`` computes it: every bin
+    sum an exact integer, ONE float32 division by the bin's area, then the
+    cast to bfloat16.  The pyramid of the bf16 path when it is not cascaded.
+
+    The sums are float32 matrix products whose every operand is an integer
+    of at most 8 bits, so they stay exact even where TF32 rounds a GEMM's
+    inputs to 11 significant bits: the H-pass multiplies pixels (<= 255) by
+    0/1; its row sums (<= 255 * bin_h) are split as hi * 128 + lo (both
+    <= 255 for bins of <= 127 rows, the JAX function's own limit) before the
+    W-pass; every sum stays below 255 * 127 * 127 < 2^24, so float32
+    accumulation is exact in any order."""
+    if x.dtype != torch.uint8 or x.dim() != 4:
+        raise ValueError(f"expected (B, H, W, C) uint8, got {tuple(x.shape)} {x.dtype}")
+    b, h, w, c = x.shape
+    oh, ow = out_hw
+    sh, wh = _sum_matrix(h, oh)
+    sw, ww = _sum_matrix(w, ow)
+    if wh.max() > 127 or ww.max() > 127:
+        raise ValueError(f"bins of {wh.max():.0f}x{ww.max():.0f} px exceed 127: "
+                         f"{h}x{w} -> {oh}x{ow}")
+    dev = x.device
+    y = torch.matmul(torch.from_numpy(sh).to(dev), x.to(torch.float32).reshape(b, h, w * c))
+    y = y.reshape(b, oh, w, c).transpose(2, 3)                        # (B, OH, C, W)
+    hi = torch.floor(y * 0.0078125)                                   # y // 128, exact
+    lo = y - hi * 128.0
+    swt = torch.from_numpy(sw.T.copy()).to(dev)
+    z = torch.matmul(hi, swt) * 128.0 + torch.matmul(lo, swt)         # (B, OH, C, OW)
+    area = torch.from_numpy(wh[:, None] * ww[None, :]).to(dev)        # (OH, OW), a device tensor
+    return (z.transpose(2, 3) / area[:, :, None]).to(torch.bfloat16)
+
+
+def resize_bilinear(x: torch.Tensor, out_hw: Tuple[int, int]) -> torch.Tensor:
+    """cv2 INTER_LINEAR-style resize of (B, H, W, C) to float32 (B, OH, OW,
+    C) with static sizes, as two separable interpolation matrix products
+    (``truely_tpu/ops/resize.py:resize_bilinear``)."""
+
+    def lerp_matrix(in_size: int, out_size: int) -> torch.Tensor:
+        mat = np.zeros((out_size, in_size), dtype=np.float32)
+        scale = in_size / out_size
+        for i in range(out_size):
+            src = min(max((i + 0.5) * scale - 0.5, 0.0), in_size - 1.0)
+            lo = int(np.floor(src))
+            hi = min(lo + 1, in_size - 1)
+            mat[i, lo] += 1.0 - (src - lo)
+            mat[i, hi] += src - lo
+        return torch.from_numpy(mat).to(x.device)
+
+    b, h, w, c = x.shape
+    oh, ow = out_hw
+    y = torch.matmul(lerp_matrix(h, oh), x.to(torch.float32).reshape(b, h, w * c))
+    y = y.reshape(b, oh, w, c).transpose(2, 3)                        # (B, OH, C, W)
+    return torch.matmul(y, lerp_matrix(w, ow).t()).transpose(2, 3)
 
 
 # ---------------------------------------------------------------------------

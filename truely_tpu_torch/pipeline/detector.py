@@ -23,7 +23,8 @@ stream scheduler's: every row refines its stream's carried seeds.
 
 The file entry points, ``analyze_video``, ``analyze_video_multiface`` and
 ``run``, read a video through ``media.decode.VideoReader`` (packed I420
-from an uncompressed I420 AVI, BGR through cv2 otherwise) and can write
+from an uncompressed I420 AVI or through the native libav decoder, BGR
+through cv2 otherwise) and can write
 the annotated video; annotating and encoding run on a worker thread beside
 the device loop.  ``warmup`` runs one step of each of those paths at a
 resolution, so that a server's first request does not pay the first-use

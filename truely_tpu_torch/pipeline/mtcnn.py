@@ -31,7 +31,7 @@ from truely_tpu_torch.ops.boxes import bbreg, pad_crop_bounds, rerec
 from truely_tpu_torch.ops.crop_area_fused import crop_resize_area_fused
 from truely_tpu_torch.ops.nms import NEG_INF, nms_masked_batch
 from truely_tpu_torch.ops.resize import (
-    crop_area_integral, crop_resize_area_from_integral, resize_area,
+    crop_area_integral, crop_resize_area_from_integral, resize_area, resize_area_u8,
 )
 from truely_tpu_torch.ops.topk import exact_topk_lastdim
 from truely_tpu_torch.pipeline.pyramid import pyramid_schedule
@@ -71,8 +71,11 @@ def _stage1(nets: MTCNNNets, frames: torch.Tensor, cfg: MTCNNConfig, dtype):
     device = frames.device
     levels = pyramid_schedule(h, w, cfg.min_face_size, cfg.scale_factor)
     # bf16 production path: each level resamples the previous one.  float32
-    # (the golden and parity runs) keeps the exact one-shot resample.
+    # (the golden and parity runs) keeps the exact one-shot resample.  bf16
+    # without the cascade resamples the frames with exact integer bin sums,
+    # as the JAX package's int8 path does (``use_i8_resize``).
     cascade = cfg.pyramid_cascade and dtype == torch.bfloat16
+    exact_u8 = not cascade and dtype == torch.bfloat16 and frames.dtype == torch.uint8
     probs, feats, offsets, wps, scales = [], [], [], [], []
     offset = 0
     src = frames
@@ -80,6 +83,8 @@ def _stage1(nets: MTCNNNets, frames: torch.Tensor, cfg: MTCNNConfig, dtype):
         if cascade:
             scaled = resize_area(src, (lvl.height, lvl.width), dtype=dtype).contiguous()
             src = scaled
+        elif exact_u8:
+            scaled = resize_area_u8(frames, (lvl.height, lvl.width)).contiguous()
         else:
             scaled = resize_area(frames, (lvl.height, lvl.width)).to(dtype).contiguous()
         prob, feat = nets.pnet.trunk(_normalize(scaled), dtype)

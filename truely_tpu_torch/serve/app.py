@@ -778,6 +778,12 @@ class TruelyServer:
             self.store.stop_cleanup()
 
 
+def create_app(**kwargs) -> TruelyServer:
+    """The server of ``kwargs`` (``TruelyServer``'s): how the CLI's
+    ``serve`` builds it, as in the JAX package."""
+    return TruelyServer(**kwargs)
+
+
 def main(argv=None) -> int:
     """``python -m truely_tpu_torch serve`` with these arguments."""
     import sys
