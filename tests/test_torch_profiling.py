@@ -1,21 +1,29 @@
 """The port's profiling utilities (``truely_tpu_torch/utils/profiling.py``)
-on the CPU: ``StageTimer`` on an injected clock, the timers' slope
-arithmetic with an injected timer (and, for ``measure_ingraph``, an
-injected capture in place of the CUDA graph), and the trace parsers on a
-``torch.profiler`` trace of CPU ops and on a written trace of device
-events.  No assertion reads the wall clock.
+on the CPU: the span recorder (``StageTimer``, ``span``, ``collect``) on an
+injected clock, across threads and under a CPU ``torch.profiler``; the
+detector's spans in the profiler's trace and its ``timings`` made of them;
+and the timers' slope arithmetic with an injected timer (and, for
+``measure_ingraph``, an injected capture in place of the CUDA graph).  Only
+the slow-writer test reads the wall clock, with seconds of margin.
 """
 
-import gzip
 import json
+import threading
+import time
 
+import numpy as np
 import pytest
 import torch
+from torch.profiler import ProfilerActivity, profile
 
+from truely_tpu_torch.config import DetectorConfig, MTCNNConfig
+from truely_tpu_torch.media.rawavi import RawAviWriter
+from truely_tpu_torch.pipeline import detector as detector_module
+from truely_tpu_torch.pipeline.detector import Detector, analysis_timings
 from truely_tpu_torch.utils import StageTimer as ExportedStageTimer
 from truely_tpu_torch.utils import profiling
 from truely_tpu_torch.utils.profiling import (
-    StageTimer, device_op_table, measure_forced, measure_ingraph, profile_trace, top_device_ops,
+    StageTimer, collect, measure_forced, measure_ingraph, span,
 )
 
 torch.set_num_threads(2)
@@ -105,57 +113,308 @@ def test_measure_ingraph_captures_each_chain_once():
     assert t.windows == [2, 10, 10, 2, 10, 2]
 
 
-def write_trace(path, events, gz=False):
-    opener = gzip.open if gz else open
-    with opener(path, "wt") as f:
-        json.dump({"traceEvents": events}, f)
+class Ticks:
+    """A clock that advances one second at every reading."""
+
+    def __init__(self):
+        self.now = -1.0
+
+    def __call__(self):
+        self.now += 1.0
+        return self.now
 
 
-def test_device_op_table_from_written_traces(tmp_path):
-    """Device events (kernels, copies, memsets) summed by name across the
-    trace files of a directory; CPU events and other phases left out."""
-    (tmp_path / "run").mkdir()
-    write_trace(tmp_path / "run" / "a.json", [
-        {"ph": "X", "cat": "kernel", "name": "k_nms", "dur": 1500.0},
-        {"ph": "X", "cat": "kernel", "name": "k_crop", "dur": 250.0},
-        {"ph": "X", "cat": "cpu_op", "name": "aten::mm", "dur": 9000.0},
-        {"ph": "M", "cat": "kernel", "name": "process_name"},
-    ])
-    write_trace(tmp_path / "run" / "b.pt.trace.json.gz", [
-        {"ph": "X", "cat": "kernel", "name": "k_crop", "dur": 750.0},
-        {"ph": "X", "cat": "gpu_memcpy", "name": "Memcpy HtoD", "dur": 100.0},
-    ], gz=True)
-    rows = device_op_table(str(tmp_path))
-    assert rows == [("k_nms", 1.5, 1), ("k_crop", 1.0, 2), ("Memcpy HtoD", 0.1, 1)]
-    assert device_op_table(str(tmp_path / "run" / "a.json")) == [("k_nms", 1.5, 1),
-                                                                 ("k_crop", 0.25, 1)]
-    text = top_device_ops(str(tmp_path), top=2).splitlines()
-    assert text[0] == "total device op time: 2.6 ms over 3 op names"
-    assert len(text) == 3 and text[1].split() == ["1.50", "ms", "x", "1", "k_nms"]
+@pytest.fixture
+def ticks(monkeypatch):
+    clock = Ticks()
+    monkeypatch.setattr(profiling.time, "perf_counter", clock)
+    return clock
 
 
-def test_profile_trace_writes_a_readable_trace(tmp_path):
-    """profile_trace around CPU work: the Chrome trace lands in the
-    directory and its CPU ops parse with the same reader."""
-    a = torch.ones(64, 64)
-    with profile_trace(str(tmp_path), cuda=False) as prof:
-        for _ in range(3):
-            a = torch.mm(a, a) * 0.01
-    assert prof is not None
-    rows = dict((name, n) for name, _, n in device_op_table(str(tmp_path),
-                                                            categories=("cpu_op",)))
-    assert rows["aten::mm"] == 3
-    assert device_op_table(str(tmp_path)) == []  # no device ran
+def test_spans_nest_with_parents_and_self_time(ticks):
+    """A timer's span, a free span inside it and one inside that: totals,
+    self times (each span less its children, so the free spans count
+    towards the timer of the span they are nested in) and the collected
+    spans in the order they closed."""
+    timer = StageTimer()
+    with collect() as spans:
+        with timer.stage("detector.analyze"):          # reads 0 .. 7
+            with span("mtcnn.cascade"):                # 1 .. 4
+                with span("mtcnn.pyramid"):            # 2 .. 3
+                    pass
+            with timer.stage("detector.fetch"):        # 5 .. 6
+                pass
+    assert timer.report() == {"mtcnn.pyramid": 1.0, "mtcnn.cascade": 3.0,
+                              "detector.fetch": 1.0, "detector.analyze": 7.0}
+    assert timer.self_report() == {"mtcnn.pyramid": 1.0, "mtcnn.cascade": 2.0,
+                                   "detector.fetch": 1.0, "detector.analyze": 3.0}
+    assert spans == [("mtcnn.pyramid", 2.0, 3.0), ("mtcnn.cascade", 1.0, 4.0),
+                     ("detector.fetch", 5.0, 6.0), ("detector.analyze", 0.0, 7.0)]
+    assert profiling._stack() == []
 
 
-def test_profile_trace_raises_without_cuda(tmp_path, monkeypatch):
-    monkeypatch.setattr(profiling.torch.cuda, "is_available", lambda: False)
-    with pytest.raises(RuntimeError, match="no CUDA device"):
-        with profile_trace(str(tmp_path)):
+def test_free_spans_and_nested_timers(ticks):
+    """A free span outside any timer counts nowhere (but is collected); a
+    second timer's spans inside the first's count towards the second, and
+    so do the free spans inside them."""
+    outer, inner = StageTimer(), StageTimer()
+    with collect() as spans:
+        with span("tracks.fold"):
             pass
+        with outer.stage("serve.analysis"):
+            with inner.stage("detector.analyze"):
+                with span("detector.upload"):
+                    pass
+    assert spans[0] == ("tracks.fold", 0.0, 1.0)
+    assert outer.report() == {"serve.analysis": 5.0}
+    assert outer.self_report() == {"serve.analysis": 2.0}
+    assert inner.report() == {"detector.upload": 1.0, "detector.analyze": 3.0}
+    assert inner.self_report() == {"detector.upload": 1.0, "detector.analyze": 2.0}
 
 
-def test_profile_trace_does_not_swallow_errors(tmp_path):
-    with pytest.raises(ZeroDivisionError):
-        with profile_trace(str(tmp_path), cuda=False):
-            1 / 0
+def test_spans_raise_through_and_still_count(ticks):
+    timer = StageTimer()
+    with pytest.raises(KeyError), timer.stage("detector.analyze"):
+        with span("detector.stage"):
+            raise KeyError("both spans still close")
+    assert timer.report() == {"detector.stage": 1.0, "detector.analyze": 3.0}
+    assert dict(timer.counts) == {"detector.stage": 1, "detector.analyze": 1}
+    assert profiling._stack() == []
+
+
+def test_each_thread_has_its_own_stack():
+    """A free span opened on a worker thread while the caller's timer span
+    is open is not nested in it: it counts towards no timer and takes
+    nothing from the caller's self time (the encode worker of an
+    analysis), and it is still collected."""
+    timer = StageTimer()
+    opened, closed = threading.Event(), threading.Event()
+
+    def worker():
+        opened.wait(10)
+        with span("detector.encode"):
+            with span("inner"):
+                pass
+        closed.set()
+
+    t = threading.Thread(target=worker)
+    with collect() as spans:
+        t.start()
+        with timer.stage("detector.analyze"):
+            opened.set()
+            assert closed.wait(10)
+        t.join(10)
+    assert not t.is_alive()
+    assert [s.name for s in spans] == ["inner", "detector.encode", "detector.analyze"]
+    assert dict(timer.counts) == {"detector.analyze": 1}
+    assert timer.self_report() == timer.report()
+
+
+def test_collect_keeps_spans_only_while_open():
+    with span("before"):
+        pass
+    with collect() as outer:
+        with span("a"):
+            pass
+        with collect() as inner:
+            with collect() as empty:
+                pass
+            with span("b"):
+                pass
+        with span("c"):
+            pass
+    with span("after"):
+        pass
+    assert [s.name for s in outer] == ["a", "b", "c"]
+    assert [s.name for s in inner] == ["b"] and empty == []
+    assert profiling._collectors == ()
+
+
+class CountingRecord:
+    calls = []
+
+    def __init__(self, name):
+        self.name = name
+
+    def __enter__(self):
+        CountingRecord.calls.append(self.name)
+
+    def __exit__(self, *exc):
+        pass
+
+
+def test_record_function_only_under_a_profiler(monkeypatch):
+    """Without a profiler a span makes no ``record_function`` call; under
+    one, one per span."""
+    monkeypatch.setattr(profiling, "record_function", CountingRecord)
+    CountingRecord.calls = []
+    timer = StageTimer()
+    with timer.stage("detector.analyze"), span("detector.stage"):
+        pass
+    assert CountingRecord.calls == []
+    with profile(activities=[ProfilerActivity.CPU]):
+        with timer.stage("detector.analyze"), span("detector.stage"):
+            pass
+    assert CountingRecord.calls == ["detector.analyze", "detector.stage"]
+
+
+def test_analysis_timings_from_the_spans():
+    """``upload`` is staging plus copy; ``device`` the self time of the
+    analysis and of the spans that issue or wait on the frame steps,
+    nested ones counted once; the host spans stay out of it."""
+    timer = StageTimer()
+    for name, seconds, own in (("detector.analyze", 10.0, 1.0), ("detector.stage", 1.0, 1.0),
+                               ("detector.upload", 0.5, 0.5), ("detector.decode", 2.0, 2.0),
+                               ("detector.temporal", 0.25, 0.25),
+                               ("detector.encode", 1.0, 1.0), ("mtcnn.cascade", 3.0, 2.0),
+                               ("mtcnn.pyramid", 1.0, 1.0), ("detector.embed", 0.25, 0.25),
+                               ("detector.fetch", 1.0, 1.0)):
+        timer._add(name, seconds, own)
+    keys = ("decode", "upload", "temporal", "encode")
+    assert analysis_timings(timer, keys) == {
+        "decode": 2.0, "upload": 1.5, "device": 5.25, "temporal": 0.25, "encode": 1.0,
+        "total": 10.0}
+    assert sum(analysis_timings(timer, keys).values()) == 2 * 10.0
+    assert analysis_timings(timer, ("upload",)) == {"upload": 1.5, "device": 5.25,
+                                                    "total": 10.0}
+    assert list(analysis_timings(StageTimer(), ("upload",)).values()) == [0.0, 0.0, 0.0]
+
+
+# The detector on the CPU: random nets at 72x96 with permissive thresholds.
+H, W = 72, 96
+DETECTOR_RANGES = {"detector.analyze", "detector.stage", "detector.upload", "detector.fetch",
+                   "mtcnn.pyramid", "mtcnn.cascade", "detector.embed"}
+TRACK_RANGES = DETECTOR_RANGES | {"detector.sync", "tracks.fold"}
+FILE_RANGES = {"detector.analyze", "detector.decode", "detector.upload", "detector.temporal",
+               "detector.encode", "detector.fetch", "mtcnn.pyramid", "mtcnn.cascade",
+               "detector.embed"}
+
+
+def detector(**kw):
+    cfg = DetectorConfig(frame_batch=4, compute_dtype="float32",
+                         mtcnn=MTCNNConfig(pnet_topk_total=32, rnet_capacity=8, onet_capacity=4,
+                                           thresholds=(0.3, 0.3, 0.3)), **kw)
+    return Detector(cfg, device="cpu")
+
+
+@pytest.fixture(scope="module")
+def packed():
+    return np.random.default_rng(5).integers(0, 256, (10, H * 3 // 2, W), dtype=np.uint8)
+
+
+def trace_ranges(prof, path):
+    prof.export_chrome_trace(str(path))
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    return {e["name"] for e in events if e.get("cat") == "user_annotation"}
+
+
+def by_name(spans):
+    totals = {}
+    for s in spans:
+        totals[s.name] = totals.get(s.name, 0.0) + s.end - s.start
+    return totals
+
+
+def test_detector_ranges_land_in_the_profiler_trace(packed, tmp_path):
+    """``analyze_i420`` and ``analyze_i420_tracks`` (K=2, so the propagate
+    syncs run) under a CPU profiler: its trace holds every range of the
+    detector, and the collected spans of each analysis lie inside its
+    ``detector.analyze``."""
+    single, tracks = detector(), detector(multi_face=True, max_tracks=2, detect_interval=2)
+    with collect() as spans, profile(activities=[ProfilerActivity.CPU]) as prof:
+        single.analyze_i420(packed, 10)
+        tracks.analyze_i420_tracks(packed, 10)
+    assert TRACK_RANGES <= trace_ranges(prof, tmp_path / "trace.json")
+    roots = [s for s in spans if s.name == "detector.analyze"]
+    assert len(roots) == 2
+    inside = [[s.name for s in spans if r.start <= s.start and s.end <= r.end] for r in roots]
+    assert sum(map(len, inside)) == len(spans)
+    assert set(inside[0]) == DETECTOR_RANGES and set(inside[1]) == TRACK_RANGES
+
+
+def test_analyze_i420_timings_are_its_spans(packed):
+    det = detector()
+    with collect() as spans:
+        got = det.analyze_i420(packed, 10)
+    totals = by_name(spans)
+    assert set(totals) == DETECTOR_RANGES
+    assert list(got.timings) == ["upload", "device", "total"]
+    assert got.timings["upload"] == pytest.approx(totals["detector.stage"]
+                                                  + totals["detector.upload"])
+    assert got.timings["total"] == pytest.approx(totals["detector.analyze"])
+    assert got.timings["device"] == pytest.approx(got.timings["total"] - got.timings["upload"])
+    assert got.timings["device"] >= totals["mtcnn.cascade"] + totals["detector.fetch"]
+    assert sum(s.name == "detector.stage" for s in spans) == 3   # one per batch of 4
+
+
+def write_avi(path, packed):
+    out = RawAviWriter(str(path), 10, W, H)
+    for p in packed:
+        out.write_i420(p)
+    out.close()
+    return str(path)
+
+
+def test_analyze_video_timings_are_its_spans(packed, tmp_path):
+    """A file analysis with an output: every timing is a sum of the caller's
+    spans, and they add up to ``total``; the worker's ``detector.encode``
+    spans (annotating and writing) are collected, but stay out of the
+    timings and of the trace of a profiler started on the caller's
+    thread."""
+    src = write_avi(tmp_path / "in.avi", packed)
+    det = detector()
+    with collect() as spans, profile(activities=[ProfilerActivity.CPU]) as prof:
+        got = det.analyze_video(src, str(tmp_path / "out.avi"))
+    # The profiler records the thread that started it: not the encode worker.
+    assert FILE_RANGES <= trace_ranges(prof, tmp_path / "trace.json")
+    totals = by_name(spans)
+    assert set(totals) == FILE_RANGES
+    t = got.timings
+    assert list(t) == ["decode", "upload", "device", "temporal", "encode", "total"]
+    for key, name in (("decode", "detector.decode"), ("upload", "detector.upload"),
+                      ("temporal", "detector.temporal"), ("total", "detector.analyze")):
+        assert t[key] == pytest.approx(totals[name])
+    # Collected: per segment (batches of 4 sampled frames) the worker's
+    # annotate and write and the caller's hand-on, and the writer's open
+    # and close.
+    segments = -(-got.total_processed // 4)
+    assert segments == 3
+    assert sum(s.name == "detector.encode" for s in spans) == 2 * segments + 2
+    assert 0 < t["encode"] < totals["detector.encode"]
+    assert sum(t.values()) == pytest.approx(2 * t["total"])
+
+
+class SlowWriter:
+    """A writer that takes ``per_frame`` seconds a frame and ``close``
+    seconds to close."""
+
+    def __init__(self, path, fps, width, height, per_frame=0.0, close=0.0):
+        self.per_frame, self.closing = per_frame, close
+        self.frames = 0
+
+    def write(self, frame):
+        self.frames += 1
+        time.sleep(self.per_frame)
+
+    write_i420 = write
+
+    def close(self):
+        time.sleep(self.closing)
+
+
+def test_analyze_video_device_leaves_out_a_slow_writer(packed, tmp_path, monkeypatch):
+    """An analysis bound by its writer: the caller's wait on the encode
+    worker and the writer's close are ``encode``, and ``device`` does not
+    grow with them."""
+    src = write_avi(tmp_path / "in.avi", packed)
+    det = detector()
+    fast = det.analyze_video(src, str(tmp_path / "out.avi"))
+    monkeypatch.setattr(detector_module, "VideoWriter",
+                        lambda *a: SlowWriter(*a, per_frame=0.3, close=3.0))
+    slow = det.analyze_video(src, str(tmp_path / "out.avi"))
+    assert [r.flagged for r in slow.records] == [r.flagged for r in fast.records]
+    # The 3 s close, and the writes (0.3 s a frame) the caller waits for.
+    assert slow.timings["encode"] >= 3.0
+    assert slow.timings["device"] < fast.timings["device"] + 2.0
+    assert sum(slow.timings.values()) == pytest.approx(2 * slow.timings["total"])

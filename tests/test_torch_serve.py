@@ -42,6 +42,7 @@ from truely_tpu_torch.serve import http as thttp
 from truely_tpu_torch.serve.app import TruelyServer
 from truely_tpu_torch.serve.http import Request, make_server, serve_forever_in_thread
 from truely_tpu_torch.serve.results import ResultStore
+from truely_tpu_torch.utils import profiling
 
 torch.set_num_threads(2)
 
@@ -514,6 +515,80 @@ def test_metrics_endpoint(server, tmp_path):
     for key in ("analysis_seconds_p50", "analysis_seconds_p95", "job_wait_seconds_p50",
                 "job_wait_seconds_p95", "job_run_seconds_p50", "job_run_seconds_p95"):
         assert payload[key] >= 0
+
+
+class BlockingDetector(FakeDetector):
+    """Holds its first analysis until ``release`` is set."""
+
+    def __init__(self):
+        super().__init__()
+        self.entered, self.release = threading.Event(), threading.Event()
+
+    def run(self, video_in, video_out):
+        if not self.entered.is_set():
+            self.entered.set()
+            assert self.release.wait(10)
+        return super().run(video_in, video_out)
+
+
+def test_lock_wait_of_two_concurrent_analyses(tmp_path):
+    """The second of two concurrent /analyze-video requests waits for the
+    detector lock while the first runs: ``lock_wait_seconds_p95`` reads
+    that wait, ``lock_wait_seconds_p50`` the first's none,
+    ``analysis_run_seconds_*`` the analyses without the wait, and each
+    request records a ``serve.lock_wait`` and a ``serve.analysis`` span."""
+    det = BlockingDetector()
+    server = make_server_obj(tmp_path, detector=det)
+    paths = [make_video(tmp_path, f"in{i}.mp4") for i in range(2)]
+    codes = []
+
+    def post(path):
+        codes.append(call(server, "POST", "/analyze-video", body={"videoPath": path})[0].status)
+
+    with profiling.collect() as spans:
+        first = threading.Thread(target=post, args=(paths[0],))
+        first.start()
+        assert det.entered.wait(10)
+        second = threading.Thread(target=post, args=(paths[1],))
+        second.start()
+        time.sleep(0.3)
+        det.release.set()
+        for t in (first, second):
+            t.join(10)
+            assert not t.is_alive()
+    assert codes == [200, 200]
+    _, payload = call(server, "GET", "/metrics")
+    assert payload["lock_wait_seconds_p95"] >= 0.25
+    assert 0 <= payload["lock_wait_seconds_p50"] < 0.25
+    assert payload["analysis_seconds_p95"] >= payload["lock_wait_seconds_p95"]
+    # The first analysis ran while the second waited; the second ran at once.
+    assert payload["analysis_run_seconds_p95"] >= 0.25
+    assert 0 <= payload["analysis_run_seconds_p50"] < 0.25
+    names = sorted(s.name for s in spans)
+    assert names == ["serve.analysis"] * 2 + ["serve.lock_wait"] * 2
+    waits = sorted(s.end - s.start for s in spans if s.name == "serve.lock_wait")
+    assert waits[1] >= 0.25
+
+
+def test_lock_released_when_the_wait_span_fails(tmp_path, monkeypatch):
+    """A span that fails to close after the detector lock was taken (the
+    recorder raising) still releases the lock: the next request runs."""
+    server = make_server_obj(tmp_path)
+    real_add = profiling.StageTimer._add
+
+    def failing_add(self, name, *a):
+        if name == "serve.lock_wait":
+            raise RuntimeError("the recorder failed")
+        return real_add(self, name, *a)
+
+    monkeypatch.setattr(profiling.StageTimer, "_add", failing_add)
+    with pytest.raises(RuntimeError):
+        server._run_analysis(make_video(tmp_path, "in0.mp4"), str(tmp_path / "out0.mp4"))
+    assert not server._detector_lock.locked()
+    monkeypatch.setattr(profiling.StageTimer, "_add", real_add)
+    resp = call(server, "POST", "/analyze-video",
+                body={"videoPath": make_video(tmp_path, "in1.mp4")})[0]
+    assert resp.status == 200
 
 
 def test_invalid_json_body(server):

@@ -38,7 +38,6 @@ import itertools
 import os
 import queue
 import threading
-import time
 from dataclasses import dataclass, field
 from typing import Callable, Dict, List, Mapping, NamedTuple, Optional, Tuple
 
@@ -66,6 +65,7 @@ from truely_tpu_torch.pipeline.mtcnn import (
 from truely_tpu_torch.pipeline.tracks import (
     TrackState, init_track_state, stream_state, track_scores, track_timeline,
 )
+from truely_tpu_torch.utils.profiling import StageTimer, span
 
 
 class DetectorNets(NamedTuple):
@@ -115,6 +115,28 @@ class VideoAnalysis:
         return [r.frame_index for r in self.records if r.flagged]
 
 
+# The spans behind each host timing of ``VideoAnalysis.timings``, and the
+# spans in which the caller issues the frame steps or waits on them.
+TIMING_SPANS = {"decode": ("detector.decode",), "upload": ("detector.stage", "detector.upload"),
+                "temporal": ("detector.temporal",), "encode": ("detector.encode",)}
+DEVICE_SPANS = ("detector.analyze", "mtcnn.cascade", "mtcnn.pyramid", "detector.embed",
+                "detector.sync", "detector.fetch")
+
+
+def analysis_timings(timer: StageTimer, keys: Tuple[str, ...]) -> Dict[str, float]:
+    """``VideoAnalysis.timings`` from the spans of an analysis's thread:
+    each of ``keys`` the total of its spans (``TIMING_SPANS``), ``total``
+    the span ``detector.analyze``, and ``device`` the self time of
+    ``DEVICE_SPANS``: the analysis outside the host spans, issuing the
+    frame steps and waiting on their results."""
+    totals, own = timer.report(), timer.self_report()
+    got = {k: sum(totals.get(name, 0.0) for name in TIMING_SPANS[k]) for k in keys}
+    got.update(device=sum(own.get(name, 0.0) for name in DEVICE_SPANS),
+               total=totals.get("detector.analyze", 0.0))
+    order = ("decode", "upload", "device", "temporal", "encode", "total")
+    return {k: got[k] for k in order if k in got}
+
+
 def clamp_box(box: torch.Tensor, h: int, w: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """Reference crop semantics of (..., 4) boxes: trunc to int, clamp to
     the frame.  Returns the (..., 4) int32 bounds and whether each is
@@ -141,11 +163,12 @@ def embed_tail(nets: DetectorNets, frames: torch.Tensor, box: torch.Tensor,
                has_face: torch.Tensor, cfg: DetectorConfig, dtype) -> FrameOutputs:
     """The clamped box (``clamp_box``), the 80x80 bilinear crop (kernel K4),
     normalization, FaceNet embedding and the landmark head."""
-    bounds, ok = clamp_box(box, frames.shape[1], frames.shape[2])
-    has_face = has_face & ok
-    crops = face_crops(frames, bounds[:, None, :], cfg)
-    emb = nets.facenet(crops, dtype)
-    lmk = nets.landmark(crops, dtype)
+    with span("detector.embed"):
+        bounds, ok = clamp_box(box, frames.shape[1], frames.shape[2])
+        has_face = has_face & ok
+        crops = face_crops(frames, bounds[:, None, :], cfg)
+        emb = nets.facenet(crops, dtype)
+        lmk = nets.landmark(crops, dtype)
     return FrameOutputs(box=box, crop_bounds=bounds, has_face=has_face,
                         embedding=emb, landmarks68=lmk)
 
@@ -279,8 +302,9 @@ def multiface_tail(nets: DetectorNets, frames: torch.Tensor, boxes: torch.Tensor
     that keyframe rows of the propagate step equal the full step's.  No
     landmark head."""
     b, t = boxes.shape[:2]
-    bounds, ok = clamp_box(boxes, frames.shape[1], frames.shape[2])
-    emb = nets.facenet(face_crops(frames, bounds, cfg), dtype).reshape(b, t, -1)
+    with span("detector.embed"):
+        bounds, ok = clamp_box(boxes, frames.shape[1], frames.shape[2])
+        emb = nets.facenet(face_crops(frames, bounds, cfg), dtype).reshape(b, t, -1)
     return boxes.to(torch.float32), valid & ok, emb
 
 
@@ -406,7 +430,8 @@ class _AnnotateWorker:
     """Annotate and encode on a worker thread, beside the device loop.
 
     The caller's thread makes every torch call and hands the worker numpy
-    arrays it has fetched (``submit``).  A failure inside ``fn`` (disk
+    arrays it has fetched (``submit``); the worker runs ``fn`` on each in
+    the span ``detector.encode``.  A failure inside ``fn`` (disk
     full, codec error) is kept, the queue drains, and the caller raises
     the first one after ``shutdown()``: promptly, never a hang."""
 
@@ -425,7 +450,8 @@ class _AnnotateWorker:
             if self.err:
                 continue  # drain what is left after a failure
             try:
-                self._fn(*item)
+                with span("detector.encode"):
+                    self._fn(*item)
             except BaseException as e:  # raised again by the caller
                 self.err.append(e)
 
@@ -615,7 +641,7 @@ class Detector:
     def track_fold(self, state: TrackState, boxes: torch.Tensor, valid: torch.Tensor,
                    emb: torch.Tensor, n_valid) -> Tuple[TrackState, object]:
         """``track_timeline`` of (S, F, T, ...) multi-face outputs."""
-        with torch.inference_mode():
+        with span("tracks.fold"), torch.inference_mode():
             return track_timeline(
                 state, boxes, valid, emb, n_valid,
                 similarity_threshold=self.config.similarity_threshold,
@@ -680,14 +706,17 @@ class Detector:
         step."""
         bk = self.config.frame_batch // k
         seed_box, seed_found = self._run(steps.detect, self._keyframes(cycle, k))
-        sv_host = seed_found.cpu().numpy() if count else None
+        if count:
+            with span("detector.sync"):
+                sv_host = seed_found.cpu().numpy()
         for j, seg in enumerate(cycle):
             rows = slice(j * bk, (j + 1) * bk)
             out = self._run(steps.propagate, seg.dev, seed_box[rows], seed_found[rows], k=k)
             seeded = lost = 0
             fell_back = False
             if count:
-                found = steps.found(out)[: seg.n_valid].cpu().numpy()
+                with span("detector.sync"):
+                    found = steps.found(out)[: seg.n_valid].cpu().numpy()
                 sv = np.repeat(sv_host[rows], k, axis=0)[: seg.n_valid]
                 seeded, lost = int(sv.sum()), int((sv & ~found).sum())
                 if self.config.propagate_fallback and seeded and lost * 2 > seeded:
@@ -727,8 +756,11 @@ class Detector:
                 out = self._run(steps.full, seg.dev)
                 self.auto_keyframe_segments += 1
                 n = seg.n_valid
-                if n and steps.found(out)[:n].reshape(n, -1).any(1).cpu().numpy().mean() >= 0.5:
-                    k = min(2, kmax)
+                if n:
+                    with span("detector.sync"):
+                        held = steps.found(out)[:n].reshape(n, -1).any(1).cpu().numpy().mean()
+                    if held >= 0.5:
+                        k = min(2, kmax)
                 self.auto_interval_current = k
                 yield seg, out
                 continue
@@ -760,36 +792,33 @@ class Detector:
             return self._propagate_outputs(segments, steps)
         return ((seg, self._run(steps.full, seg.dev)) for seg in segments)
 
-    def _segments(self, frames: np.ndarray, sampled: List[int], timings: Dict[str, float]):
+    def _segments(self, frames: np.ndarray, sampled: List[int]):
         """The sampled frames in uploaded ``frame_batch`` batches, the last
         one zero-padded."""
         b = self.config.frame_batch
         for s in range(0, len(sampled), b):
             chunk = sampled[s:s + b]
-            t0 = time.perf_counter()
-            stack = np.zeros((b,) + frames.shape[1:], np.uint8)
-            stack[: len(chunk)] = frames[chunk]
-            dev = torch.from_numpy(stack).to(self.device, non_blocking=True)
-            timings["upload"] = timings.get("upload", 0.0) + time.perf_counter() - t0
+            with span("detector.stage"):
+                stack = np.zeros((b,) + frames.shape[1:], np.uint8)
+                stack[: len(chunk)] = frames[chunk]
+            with span("detector.upload"):
+                dev = torch.from_numpy(stack).to(self.device, non_blocking=True)
             yield Segment(chunk, dev)
 
     def _analyze(self, frames: np.ndarray, fps: int, *, yuv: bool) -> VideoAnalysis:
         cfg = self.config
-        t_start = time.perf_counter()
-        timings = {"upload": 0.0, "device": 0.0}
+        timer = StageTimer()
         n = frames.shape[0]
         sampled = list(range(0, n, cfg.sample_interval(fps)))
-        state = init_temporal_state(self.embedding_dim, self.device)
         records: List[FrameRecord] = []
         flagged_total = 0
 
         def fetch(chunk, out, res):
             nonlocal flagged_total
-            t0 = time.perf_counter()
-            bounds, has_face, annotated, flagged, sims, counters = (
-                t.cpu().numpy() for t in (out.crop_bounds, res.has_face, res.annotated,
-                                          res.flagged, res.similarity, res.counter))
-            timings["device"] += time.perf_counter() - t0
+            with span("detector.fetch"):
+                bounds, has_face, annotated, flagged, sims, counters = (
+                    t.cpu().numpy() for t in (out.crop_bounds, res.has_face, res.annotated,
+                                              res.flagged, res.similarity, res.counter))
             flagged_total += int(np.sum(flagged[: len(chunk)]))
             for k, gi in enumerate(chunk):
                 records.append(FrameRecord(
@@ -799,26 +828,28 @@ class Detector:
                     counter=int(counters[k]),
                 ))
 
-        # One-deep pipeline: batch N+1 is uploaded and enqueued before the
-        # host waits on batch N's results (with propagation, a keyframe
-        # cycle's batches are all uploaded before its seed step).
-        in_flight = None
-        for seg, out in self._segment_outputs(self._segments(frames, sampled, timings), yuv):
-            res = self.temporal(out, seg.n_valid, state)
-            state = res.state
+        with timer.stage("detector.analyze"):
+            state = init_temporal_state(self.embedding_dim, self.device)
+            # One-deep pipeline: batch N+1 is uploaded and enqueued before
+            # the host waits on batch N's results (with propagation, a
+            # keyframe cycle's batches are all uploaded before its seed
+            # step).
+            in_flight = None
+            for seg, out in self._segment_outputs(self._segments(frames, sampled), yuv):
+                res = self.temporal(out, seg.n_valid, state)
+                state = res.state
+                if in_flight is not None:
+                    fetch(*in_flight)
+                in_flight = (seg.indices, out, res)
             if in_flight is not None:
                 fetch(*in_flight)
-            in_flight = (seg.indices, out, res)
-        if in_flight is not None:
-            fetch(*in_flight)
-
-        final_counter = int(state.counter)
-        timings["total"] = time.perf_counter() - t_start
+            with span("detector.fetch"):
+                final_counter = int(state.counter)
         return VideoAnalysis(
             fake_score=self.score(flagged_total, final_counter, len(sampled), n, fps),
             frame_count=n, fps=fps, total_processed=len(sampled),
             flagged_count=flagged_total, final_counter=final_counter,
-            records=records, timings=timings, yuv_ingest=yuv,
+            records=records, timings=analysis_timings(timer, ("upload",)), yuv_ingest=yuv,
         )
 
     def _analyze_tracks(self, frames: np.ndarray, fps: int, *, yuv: bool):
@@ -827,32 +858,32 @@ class Detector:
         cfg = self.config
         n = frames.shape[0]
         sampled = list(range(0, n, cfg.sample_interval(fps)))
-        state = init_track_state(cfg.max_tracks, self.embedding_dim, device=self.device)
-        for seg, (boxes, valid, emb) in self._segment_outputs(
-                self._segments(frames, sampled, {}), yuv, multi_face=True):
-            state, _ = self.track_fold(state, boxes[None], valid[None], emb[None], seg.n_valid)
-        per_track = self.track_scores(state, n, fps)[0]
+        with span("detector.analyze"):
+            state = init_track_state(cfg.max_tracks, self.embedding_dim, device=self.device)
+            for seg, (boxes, valid, emb) in self._segment_outputs(
+                    self._segments(frames, sampled), yuv, multi_face=True):
+                state, _ = self.track_fold(state, boxes[None], valid[None], emb[None],
+                                           seg.n_valid)
+            with span("detector.fetch"):
+                per_track = self.track_scores(state, n, fps)[0]
         return int(per_track.max(initial=0)), per_track, stream_state(state, 0)
 
     # ------------------------------------------------------------------
     # Files
 
-    def _file_segments(self, reader: VideoReader, timings: Dict[str, float]):
-        """The reader's segments, uploaded: the time spent waiting on the
-        decode thread goes to ``timings["decode"]``, the copies to
-        ``timings["upload"]``."""
+    def _file_segments(self, reader: VideoReader):
+        """The reader's segments, uploaded: the wait on the decode thread
+        is the span ``detector.decode``, the copy ``detector.upload``."""
         it = reader.segments(self.config.sample_interval(reader.meta.fps),
                              self.config.frame_batch)
         try:
             while True:
-                t0 = time.perf_counter()
-                seg = next(it, None)
-                t1 = time.perf_counter()
-                timings["decode"] += t1 - t0
+                with span("detector.decode"):
+                    seg = next(it, None)
                 if seg is None:
                     return
-                dev = torch.from_numpy(seg.sampled).to(self.device, non_blocking=True)
-                timings["upload"] += time.perf_counter() - t1
+                with span("detector.upload"):
+                    dev = torch.from_numpy(seg.sampled).to(self.device, non_blocking=True)
                 yield Segment(seg.sampled_indices, dev, tuple(seg.frames),
                               tuple(seg.frame_indices), seg.n_frames, seg.frames_i420)
         finally:
@@ -861,42 +892,49 @@ class Detector:
     def analyze_video(self, input_path: str, output_path: Optional[str] = None) -> VideoAnalysis:
         """Analysis of a video file, and with ``output_path`` the annotated
         video (the reference's ``run()``, server/model.py:11-95).  Timings,
-        host seconds: ``decode`` (waiting on the decode thread),
-        ``upload``, ``device`` (issuing the frame steps and waiting on their
-        results), ``temporal`` (issuing the fold), ``encode`` (annotating
-        and writing, on the worker thread when there is an output),
-        ``total``."""
+        host seconds of the caller's thread (``analysis_timings``):
+        ``decode`` (opening and closing the reader, waiting on its decode
+        thread), ``upload``, ``device`` (issuing the frame steps and waiting
+        on their results), ``temporal`` (issuing the fold), ``encode`` (the
+        records; with an output, opening and closing the writer and waiting
+        on the worker thread that annotates and writes), ``total``."""
         cfg = self.config
         rgb = not cfg.reference_compat
-        t_start = time.perf_counter()
-        timings = {"decode": 0.0, "upload": 0.0, "device": 0.0, "temporal": 0.0, "encode": 0.0}
+        timer = StageTimer()
         # With an output, every frame's packed picture comes along, so that
         # the frames not drawn on re-encode without a colour conversion.
-        with VideoReader(input_path, rgb=rgb, yuv=cfg.yuv_ingest,
-                         host_frames=output_path is not None) as reader:
+        with timer.stage("detector.analyze"), contextlib.ExitStack() as closing:
+            with timer.stage("detector.decode"):
+                reader = VideoReader(input_path, rgb=rgb, yuv=cfg.yuv_ingest,
+                                     host_frames=output_path is not None)
+
+            def close_reader():   # the decode thread's join is decode time too
+                with timer.stage("detector.decode"):
+                    reader.close()
+
+            closing.callback(close_reader)
             meta = reader.meta
-            writer = (VideoWriter(output_path, meta.fps, meta.width, meta.height)
-                      if output_path else None)
+            with timer.stage("detector.encode"):
+                writer = (VideoWriter(output_path, meta.fps, meta.width, meta.height)
+                          if output_path else None)
             state = init_temporal_state(self.embedding_dim, self.device)
             records: List[FrameRecord] = []
             totals = {"frames": 0, "processed": 0, "flagged": 0}
 
             def fetch_results(out, res):
                 # Everything the records and the annotator need, in one wait.
-                t1 = time.perf_counter()
-                got = tuple(t.cpu().numpy() for t in (
-                    out.crop_bounds, res.has_face, res.annotated, res.flagged, res.similarity,
-                    res.counter))
-                lmks = out.landmarks68.cpu().numpy() if cfg.draw_landmarks else None
-                timings["device"] += time.perf_counter() - t1
+                with span("detector.fetch"):
+                    got = tuple(t.cpu().numpy() for t in (
+                        out.crop_bounds, res.has_face, res.annotated, res.flagged,
+                        res.similarity, res.counter))
+                    lmks = out.landmarks68.cpu().numpy() if cfg.draw_landmarks else None
                 return got + (lmks,)
 
-            def finish_segment(seg: Segment, fetched):
+            def encode_segment(seg: Segment, fetched):
                 bounds, has_face, annotated, flagged, sims, counters, lmks = fetched
                 totals["flagged"] += int(np.sum(flagged[: seg.n_valid]))
                 totals["processed"] += seg.n_valid
                 totals["frames"] += seg.n_frames
-                t2 = time.perf_counter()
                 ann = {gi: k for k, gi in enumerate(seg.indices)}
                 for j, gi in enumerate(seg.frame_indices):
                     frame = seg.frames[j] if seg.frames else None
@@ -926,33 +964,28 @@ class Detector:
                             # The writers take BGR; corrected mode decodes RGB.
                             writer.write(px if cfg.reference_compat
                                          else np.ascontiguousarray(px[..., ::-1]))
-                timings["encode"] += time.perf_counter() - t2
 
-            # With an output, annotate and encode run on a worker thread;
+            # With an output, annotate and encode run on a worker thread, and
+            # the caller's wait for room in its queue is encode time;
             # score-only runs do the little host work in line.
-            wt = _AnnotateWorker(finish_segment) if writer is not None else None
-            emit = wt.submit if wt is not None else finish_segment
+            wt = _AnnotateWorker(encode_segment) if writer is not None else None
+            hand_on = wt.submit if wt is not None else encode_segment
+
+            def emit(seg: Segment, fetched):
+                with timer.stage("detector.encode"):
+                    hand_on(seg, fetched)
+
             try:
                 # One-deep pipeline: batch N+1 is uploaded and enqueued
                 # before the host waits on batch N's results.
                 in_flight = None
-                outputs = self._segment_outputs(self._file_segments(reader, timings),
-                                                reader.yuv_active)
-                while True:
-                    t0 = time.perf_counter()
-                    io = timings["decode"] + timings["upload"]
-                    item = next(outputs, None)
-                    # Issuing the steps: the time in next() beside the
-                    # reader's and the upload's.
-                    timings["device"] += (time.perf_counter() - t0
-                                          - (timings["decode"] + timings["upload"] - io))
+                for seg, out in self._segment_outputs(self._file_segments(reader),
+                                                      reader.yuv_active):
                     # A failed writer stops decoding and uploading at once.
-                    if item is None or (wt is not None and wt.err):
+                    if wt is not None and wt.err:
                         break
-                    seg, out = item
-                    t0 = time.perf_counter()
-                    res = self.temporal(out, seg.n_valid, state)
-                    timings["temporal"] += time.perf_counter() - t0
+                    with span("detector.temporal"):
+                        res = self.temporal(out, seg.n_valid, state)
                     state = res.state
                     if in_flight is not None:
                         emit(in_flight[0], fetch_results(*in_flight[1:]))
@@ -960,16 +993,18 @@ class Detector:
                 if in_flight is not None:
                     emit(in_flight[0], fetch_results(*in_flight[1:]))
             finally:
-                if wt is not None:
-                    wt.shutdown()
-                if writer:
-                    writer.close()
+                with timer.stage("detector.encode"):
+                    if wt is not None:
+                        wt.shutdown()
+                    if writer:
+                        writer.close()
             if wt is not None and wt.err:
                 raise wt.err[0]
             yuv_ingest = reader.yuv_active
+            with span("detector.fetch"):
+                final_counter = int(state.counter)
 
-        final_counter = int(state.counter)
-        timings["total"] = time.perf_counter() - t_start
+        timings = analysis_timings(timer, ("decode", "upload", "temporal", "encode"))
         return VideoAnalysis(
             fake_score=self.score(totals["flagged"], final_counter, totals["processed"],
                                   totals["frames"], meta.fps),
@@ -986,16 +1021,16 @@ class Detector:
         cfg = self.config
         rgb = not cfg.reference_compat
         t = cfg.max_tracks
-        timings = {"decode": 0.0, "upload": 0.0}
-        with VideoReader(input_path, rgb=rgb, yuv=cfg.yuv_ingest,
-                         host_frames=output_path is not None) as reader:
+        with span("detector.analyze"), VideoReader(
+                input_path, rgb=rgb, yuv=cfg.yuv_ingest,
+                host_frames=output_path is not None) as reader:
             meta = reader.meta
             writer = (VideoWriter(output_path, meta.fps, meta.width, meta.height)
                       if output_path else None)
             state = init_track_state(t, self.embedding_dim, device=self.device)
             frame_count = 0
 
-            def finish_segment(seg: Segment, fetched):
+            def encode_segment(seg: Segment, fetched):
                 t_boxes, t_upd, t_flag = fetched
 
                 def drawn(k, i):
@@ -1017,17 +1052,17 @@ class Detector:
                                  else np.ascontiguousarray(px[..., ::-1]))
 
             def fetch(outs):
-                return tuple(x[0].cpu().numpy() for x in (
-                    outs.track_box, outs.track_updated, outs.track_flagged))
+                with span("detector.fetch"):
+                    return tuple(x[0].cpu().numpy() for x in (
+                        outs.track_box, outs.track_updated, outs.track_flagged))
 
             # The structure of analyze_video: a one-deep pipeline feeding an
             # encode worker.
-            wt = _AnnotateWorker(finish_segment) if writer is not None else None
+            wt = _AnnotateWorker(encode_segment) if writer is not None else None
             try:
                 in_flight = None
                 for seg, (boxes, valid, emb) in self._segment_outputs(
-                        self._file_segments(reader, timings), reader.yuv_active,
-                        multi_face=True):
+                        self._file_segments(reader), reader.yuv_active, multi_face=True):
                     if wt is not None and wt.err:
                         break
                     state, outs = self.track_fold(state, boxes[None], valid[None], emb[None],
@@ -1047,7 +1082,8 @@ class Detector:
                     writer.close()
             if wt is not None and wt.err:
                 raise wt.err[0]
-        per_track = self.track_scores(state, frame_count, meta.fps)[0]
+            with span("detector.fetch"):
+                per_track = self.track_scores(state, frame_count, meta.fps)[0]
         return int(per_track.max(initial=0)), per_track, stream_state(state, 0)
 
     def run(self, video_path_one: str, video_path_two: str) -> int:

@@ -35,6 +35,7 @@ from truely_tpu_torch.ops.resize import (
 )
 from truely_tpu_torch.ops.topk import exact_topk_lastdim
 from truely_tpu_torch.pipeline.pyramid import pyramid_schedule
+from truely_tpu_torch.utils.profiling import span
 
 
 class MTCNNNets(NamedTuple):
@@ -80,13 +81,14 @@ def _stage1(nets: MTCNNNets, frames: torch.Tensor, cfg: MTCNNConfig, dtype):
     offset = 0
     src = frames
     for lvl in levels:
-        if cascade:
-            scaled = resize_area(src, (lvl.height, lvl.width), dtype=dtype).contiguous()
-            src = scaled
-        elif exact_u8:
-            scaled = resize_area_u8(frames, (lvl.height, lvl.width)).contiguous()
-        else:
-            scaled = resize_area(frames, (lvl.height, lvl.width)).to(dtype).contiguous()
+        with span("mtcnn.pyramid"):
+            if cascade:
+                scaled = resize_area(src, (lvl.height, lvl.width), dtype=dtype).contiguous()
+                src = scaled
+            elif exact_u8:
+                scaled = resize_area_u8(frames, (lvl.height, lvl.width)).contiguous()
+            else:
+                scaled = resize_area(frames, (lvl.height, lvl.width)).to(dtype).contiguous()
         prob, feat = nets.pnet.trunk(_normalize(scaled), dtype)
         hp, wp = prob.shape[1], prob.shape[2]
         probs.append(prob.reshape(b, hp * wp))
@@ -219,11 +221,13 @@ def _stages23(nets: MTCNNNets, src: CropSource, boxes, scores, valid, cfg: MTCNN
 def detect_faces(nets: MTCNNNets, frames: torch.Tensor, cfg: MTCNNConfig = MTCNNConfig(),
                  *, dtype=torch.bfloat16) -> Detections:
     """The full cascade on a (B, H, W, 3) uint8 frame batch (the reference
-    feeds BGR)."""
-    boxes, scores, valid = _stage1(nets, frames, cfg, dtype)
-    k2 = min(cfg.rnet_capacity, boxes.shape[1])
-    return _stages23(nets, prep_crop_frames(frames, cfg, dtype), boxes, scores, valid, cfg,
-                     k2=k2, k3=min(cfg.onet_capacity, k2), dtype=dtype)
+    feeds BGR): the span ``mtcnn.cascade``, each pyramid level's resample
+    the span ``mtcnn.pyramid`` inside it."""
+    with span("mtcnn.cascade"):
+        boxes, scores, valid = _stage1(nets, frames, cfg, dtype)
+        k2 = min(cfg.rnet_capacity, boxes.shape[1])
+        return _stages23(nets, prep_crop_frames(frames, cfg, dtype), boxes, scores, valid, cfg,
+                         k2=k2, k3=min(cfg.onet_capacity, k2), dtype=dtype)
 
 
 # Refinement candidates: concentric squares around the seed box at these
@@ -255,23 +259,24 @@ def refine_faces_multi(nets: MTCNNNets, frames: torch.Tensor, seed_boxes: torch.
     (B, T·C) candidate set with descending placeholder scores, and stages
     2-3 refine, re-score and cross-suppress them, so candidates of two
     seeds on one face merge under the per-frame NMS.  Invalid seed slots
-    contribute nothing."""
+    contribute nothing.  The span ``mtcnn.cascade``."""
     b, t = seed_boxes.shape[:2]
     c = len(PROPAGATE_SCALES)
-    sq = rerec(seed_boxes)
-    cx = (sq[..., 0] + sq[..., 2]) * 0.5
-    cy = (sq[..., 1] + sq[..., 3]) * 0.5
-    side = sq[..., 2] - sq[..., 0]
-    cands = []
-    for s in PROPAGATE_SCALES:
-        half = side * (0.5 * s)
-        cands.append(torch.stack([cx - half, cy - half, cx + half, cy + half], dim=-1))
-    boxes = torch.stack(cands, dim=2).reshape(b, t * c, 4)            # seed-major
-    valid = seed_valid[:, :, None].expand(b, t, c).reshape(b, t * c)
-    ranks = 1.0 - 0.01 * torch.arange(t * c, dtype=torch.float32, device=frames.device)
-    scores = torch.where(valid, ranks[None, :], 0.0)
-    return _stages23(nets, prep_crop_frames(frames, cfg, dtype), boxes, scores, valid, cfg,
-                     k2=t * c, k3=t * c, dtype=dtype)
+    with span("mtcnn.cascade"):
+        sq = rerec(seed_boxes)
+        cx = (sq[..., 0] + sq[..., 2]) * 0.5
+        cy = (sq[..., 1] + sq[..., 3]) * 0.5
+        side = sq[..., 2] - sq[..., 0]
+        cands = []
+        for s in PROPAGATE_SCALES:
+            half = side * (0.5 * s)
+            cands.append(torch.stack([cx - half, cy - half, cx + half, cy + half], dim=-1))
+        boxes = torch.stack(cands, dim=2).reshape(b, t * c, 4)            # seed-major
+        valid = seed_valid[:, :, None].expand(b, t, c).reshape(b, t * c)
+        ranks = 1.0 - 0.01 * torch.arange(t * c, dtype=torch.float32, device=frames.device)
+        scores = torch.where(valid, ranks[None, :], 0.0)
+        return _stages23(nets, prep_crop_frames(frames, cfg, dtype), boxes, scores, valid, cfg,
+                         k2=t * c, k3=t * c, dtype=dtype)
 
 
 def select_primary_face(det: Detections, *, largest: bool = True

@@ -126,6 +126,12 @@ class TruelyServer:
         # (job_wait_* = submit→dequeue, job_run_* = the shared group run).
         self._job_wait_seconds: List[float] = []
         self._job_run_seconds: List[float] = []
+        # The synchronous analyses' split (the spans ``serve.lock_wait`` and
+        # ``serve.analysis``): lock_wait_* = the wait for the detector lock,
+        # analysis_run_* = the analysis that holds it; analysis_seconds_*
+        # time the two together.
+        self._lock_wait_seconds: List[float] = []
+        self._analysis_run_seconds: List[float] = []
         self.jobs = JobRunner(ttl_seconds=self.config.result_ttl_seconds)
         self.jobs.register_group_runner(
             "analyze-video", self._run_analysis_group
@@ -180,6 +186,14 @@ class TruelyServer:
                 del self._job_wait_seconds[:-1000]
                 del self._job_run_seconds[:-1000]
 
+    def _record_lock_split(self, wait_s: float, run_s: float) -> None:
+        with self._metrics_lock:
+            self._lock_wait_seconds.append(wait_s)
+            self._analysis_run_seconds.append(run_s)
+            if len(self._lock_wait_seconds) > 1000:
+                del self._lock_wait_seconds[:-1000]
+                del self._analysis_run_seconds[:-1000]
+
     @staticmethod
     def _percentile(sorted_vals: List[float], q: float) -> float:
         """Nearest-rank percentile of an already-sorted list."""
@@ -197,15 +211,28 @@ class TruelyServer:
         return bool(getattr(self.detector, "facenet_pretrained", False))
 
     def _run_analysis(self, video_path: str, output_path: str) -> int:
-        """Serialized access to the device for the visual pipeline."""
+        """Serialized access to the device for the visual pipeline: the
+        spans ``serve.lock_wait`` (the wait for the detector lock) and
+        ``serve.analysis`` (``detector.run``)."""
+        # Imported at the first analysis, as the agents are at theirs: the
+        # recorder imports torch, which the app itself does not.
+        from truely_tpu_torch.utils.profiling import StageTimer
+
+        timer = StageTimer()
         t0 = time.time()
-        ok = False
+        ok = locked = False
         try:
-            with self._detector_lock:
+            with timer.stage("serve.lock_wait"):
+                locked = self._detector_lock.acquire()
+            with timer.stage("serve.analysis"):
                 score = self.detector.run(video_path, output_path)
             ok = True
             return score
         finally:
+            if locked:
+                self._detector_lock.release()
+                self._record_lock_split(timer.totals["serve.lock_wait"],
+                                        timer.totals["serve.analysis"])
             self._record_analysis(time.time() - t0, ok)
 
     def _run_analysis_group(self, jobs) -> Dict[str, Dict[str, Any]]:
@@ -368,6 +395,12 @@ class TruelyServer:
             latencies = sorted(self._analysis_seconds)
             waits = sorted(self._job_wait_seconds)
             runs = sorted(self._job_run_seconds)
+            lock_waits = sorted(self._lock_wait_seconds)
+            analysis_runs = sorted(self._analysis_run_seconds)
+        # analysis_seconds_* time a whole analysis request, its wait for the
+        # detector lock included; for the synchronous /analyze-video
+        # requests, lock_wait_* time that wait alone and analysis_run_* the
+        # analysis after it.
         payload["analysis_seconds_p50"] = self._percentile(latencies, 0.50)
         payload["analysis_seconds_p95"] = self._percentile(latencies, 0.95)
         # Async-job split (grouped analyze-video jobs): wait = queue
@@ -377,6 +410,10 @@ class TruelyServer:
         payload["job_wait_seconds_p95"] = self._percentile(waits, 0.95)
         payload["job_run_seconds_p50"] = self._percentile(runs, 0.50)
         payload["job_run_seconds_p95"] = self._percentile(runs, 0.95)
+        payload["lock_wait_seconds_p50"] = self._percentile(lock_waits, 0.50)
+        payload["lock_wait_seconds_p95"] = self._percentile(lock_waits, 0.95)
+        payload["analysis_run_seconds_p50"] = self._percentile(analysis_runs, 0.50)
+        payload["analysis_run_seconds_p95"] = self._percentile(analysis_runs, 0.95)
         payload["results_stored"] = len(self.store)
         payload["weights_pretrained"] = self._weights_pretrained()
         payload["uptime_seconds"] = round(time.time() - payload["started_at"], 1)

@@ -1,3 +1,3 @@
 """Shared utilities: profiling (counterpart of ``truely_tpu/utils``)."""
 
-from truely_tpu_torch.utils.profiling import StageTimer, profile_trace  # noqa: F401
+from truely_tpu_torch.utils.profiling import StageTimer  # noqa: F401

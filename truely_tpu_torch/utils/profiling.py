@@ -1,8 +1,22 @@
-"""Per-stage timing and device profiling (counterpart of
+"""The program's span recorder, and device timing (counterpart of
 ``truely_tpu/utils/profiling.py``).
 
-- ``StageTimer`` accumulates named host-side stage durations and reports a
-  breakdown.
+- ``StageTimer`` is one analysis's recorder, kept by the thread that runs
+  the analysis: ``stage(name)`` times a span on ``time.perf_counter``, and
+  the timer keeps each name's total, self time (the span less what the
+  spans nested in it cover) and count.  ``span(name)`` is a span with no
+  timer, for code that has none (the free frame-step functions and the
+  encode worker): inside a timer's span on the same thread it counts
+  towards that timer.  Spans nest by a per-thread stack.
+- While ``torch.profiler`` runs (``torch.autograd._profiler_enabled()``),
+  every span also opens ``record_function(name)``, so the program's spans
+  land in the profiler's trace on the clock of its device ops.  With no
+  profiler running a span makes no dispatcher call.  The profiler records
+  the thread that started it, so the spans of other threads (the encode
+  worker's) reach ``collect()`` but not the trace.
+- ``collect()`` keeps the finished spans (``Span``: name, start, end) while
+  it is open; otherwise no span is kept, so a long-running server holds
+  none.
 - ``measure_forced`` times a step on the card: CUDA events around chains
   of ``n_lo`` and ``n_hi`` calls, after ``torch.cuda.synchronize``, and the
   slope between them, so a constant cost per chain cancels.  The JAX
@@ -14,11 +28,6 @@
 - ``measure_ingraph`` captures the chain as a CUDA graph and replays it
   (in place of the JAX ``fori_loop``), for steps so short that the host's
   cost of issuing them would be measured instead of the device.
-- ``device_op_table`` and ``top_device_ops`` read a ``torch.profiler``
-  Chrome trace into device time per kernel name.
-- ``profile_trace`` wraps ``torch.profiler`` around a section and writes
-  its Chrome trace.  Unlike the JAX version it raises when the profiler
-  fails.
 
 The timers take an injectable ``timer`` (and ``measure_ingraph`` a
 ``capture``), so the arithmetic runs without a card.
@@ -27,36 +36,122 @@ The timers take an injectable ``timer`` (and ``measure_ingraph`` a
 from __future__ import annotations
 
 import contextlib
-import glob
-import gzip
-import json
-import os
+import threading
 import time
 from collections import defaultdict
-from typing import Any, Callable, Dict, Iterator, List, Sequence, Tuple
+from typing import Any, Callable, Dict, Iterator, List, NamedTuple, Optional
 
 import torch
+from torch.autograd import _profiler_enabled
+from torch.autograd.profiler import record_function
 
-# Kineto's categories of the events that ran on the device.
-DEVICE_CATEGORIES = ("kernel", "gpu_memcpy", "gpu_memset")
+
+class Span(NamedTuple):
+    """One finished span, as ``collect()`` keeps it."""
+
+    name: str
+    start: float   # time.perf_counter() seconds
+    end: float
+
+
+_local = threading.local()
+# The lists of the open ``collect()`` blocks; replaced whole, under the lock.
+_collectors: tuple = ()
+_collectors_lock = threading.Lock()
+
+
+def _stack() -> list:
+    stack = getattr(_local, "stack", None)
+    if stack is None:
+        stack = _local.stack = []
+    return stack
+
+
+class _Open:
+    """A span in progress: the context manager of ``span``/``stage``."""
+
+    __slots__ = ("name", "timer", "parent", "start", "covered", "rf")
+
+    def __init__(self, name: str, timer: Optional["StageTimer"]):
+        self.name = name
+        self.timer = timer
+
+    def __enter__(self) -> "_Open":
+        stack = _stack()
+        self.parent = stack[-1] if stack else None
+        if self.timer is None and self.parent is not None:
+            self.timer = self.parent.timer
+        self.covered = 0.0  # seconds of the spans nested in this one
+        self.rf = None
+        if _profiler_enabled():
+            self.rf = record_function(self.name)
+            self.rf.__enter__()
+        stack.append(self)
+        self.start = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        end = time.perf_counter()
+        _stack().pop()
+        if self.rf is not None:
+            self.rf.__exit__(None, None, None)
+        seconds = end - self.start
+        parent = self.parent
+        if parent is not None:
+            parent.covered += seconds
+        timer = self.timer
+        if timer is not None:
+            timer._add(self.name, seconds, seconds - self.covered)
+        if _collectors:
+            done = Span(self.name, self.start, end)
+            for spans in _collectors:
+                spans.append(done)
+
+
+def span(name: str) -> _Open:
+    """A span with no timer of its own: it counts towards the timer of the
+    span it is nested in on this thread, if any."""
+    return _Open(name, None)
+
+
+@contextlib.contextmanager
+def collect() -> Iterator[List[Span]]:
+    """Yields a list to which every span that finishes while the block is
+    open is appended, on any thread."""
+    global _collectors
+    spans: List[Span] = []
+    with _collectors_lock:
+        _collectors = _collectors + (spans,)
+    try:
+        yield spans
+    finally:
+        with _collectors_lock:
+            _collectors = tuple(c for c in _collectors if c is not spans)
 
 
 class StageTimer:
+    """One analysis's spans, on the thread that runs it: per name the total
+    seconds (``report()``), the self seconds (``self_report()``) and the
+    count."""
+
     def __init__(self) -> None:
         self.totals: Dict[str, float] = defaultdict(float)
+        self.self_totals: Dict[str, float] = defaultdict(float)
         self.counts: Dict[str, int] = defaultdict(int)
 
-    @contextlib.contextmanager
-    def stage(self, name: str) -> Iterator[None]:
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            self.totals[name] += time.perf_counter() - t0
-            self.counts[name] += 1
+    def stage(self, name: str) -> _Open:
+        return _Open(name, self)
+
+    def _add(self, name: str, seconds: float, self_seconds: float) -> None:
+        self.totals[name] += seconds
+        self.self_totals[name] += self_seconds
+        self.counts[name] += 1
 
     def report(self) -> Dict[str, float]:
         return dict(self.totals)
+
+    def self_report(self) -> Dict[str, float]:
+        return dict(self.self_totals)
 
     def summary(self) -> str:
         total = sum(self.totals.values())
@@ -159,74 +254,3 @@ def measure_ingraph(
     for n in (n_lo, n_hi):
         timer(replays[n])  # warm
     return _slope(lambda n: timer(replays[n]), n_lo, n_hi, trials)
-
-
-def _trace_files(trace_dir: str) -> List[str]:
-    if os.path.isfile(trace_dir):
-        return [trace_dir]
-    found = []
-    for pattern in ("*.json", "*.json.gz"):
-        found += glob.glob(os.path.join(trace_dir, "**", pattern), recursive=True)
-    return sorted(found)
-
-
-def _load_trace(path: str) -> dict:
-    opener = gzip.open if path.endswith(".gz") else open
-    with opener(path, "rt") as f:
-        return json.load(f)
-
-
-def device_op_table(
-    trace_dir: str, *, categories: Sequence[str] = DEVICE_CATEGORIES
-) -> List[Tuple[str, float, int]]:
-    """Device time per op name from ``torch.profiler`` Chrome traces.
-
-    Reads ``trace_dir`` (a trace file, or a directory searched recursively
-    for ``*.json`` and ``*.json.gz``), keeps complete ("X") events whose
-    category is one of ``categories`` (by default what ran on the device:
-    kernels, copies and memsets), and returns ``[(name, total_ms, count),
-    ...]`` sorted by total time, longest first."""
-    agg: Dict[str, List[float]] = {}
-    for path in _trace_files(trace_dir):
-        for e in _load_trace(path).get("traceEvents", []):
-            if e.get("ph") != "X" or e.get("cat") not in categories:
-                continue
-            bucket = agg.setdefault(e.get("name", "?"), [0.0, 0])
-            bucket[0] += e.get("dur", 0) / 1e3
-            bucket[1] += 1
-    return sorted(
-        ((name, ms, int(n)) for name, (ms, n) in agg.items()),
-        key=lambda row: -row[1],
-    )
-
-
-def top_device_ops(
-    trace_dir: str, top: int = 20, *, categories: Sequence[str] = DEVICE_CATEGORIES
-) -> str:
-    """Human-readable top-N table from :func:`device_op_table`."""
-    rows = device_op_table(trace_dir, categories=categories)
-    total = sum(ms for _, ms, _ in rows)
-    lines = [f"total device op time: {total:.1f} ms over {len(rows)} op names"]
-    lines += [
-        f"  {ms:9.2f} ms  x{n:4d}  {name[:90]}" for name, ms, n in rows[:top]
-    ]
-    return "\n".join(lines)
-
-
-@contextlib.contextmanager
-def profile_trace(log_dir: str, *, cuda: bool = True) -> Iterator[Any]:
-    """``torch.profiler`` around the block, its Chrome trace written to
-    ``log_dir/trace.json`` at the end; yields the profiler.  ``cuda=True``
-    traces the card's kernels too and raises when there is no CUDA device;
-    any failure of the profiler raises."""
-    from torch.profiler import ProfilerActivity, profile
-
-    activities = [ProfilerActivity.CPU]
-    if cuda:
-        if not torch.cuda.is_available():
-            raise RuntimeError("profile_trace(cuda=True): no CUDA device")
-        activities.append(ProfilerActivity.CUDA)
-    os.makedirs(log_dir, exist_ok=True)
-    with profile(activities=activities) as prof:
-        yield prof
-    prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
