@@ -375,6 +375,9 @@ class Form(NamedTuple):
     nbytes: float
     ops: float
     same_as: Optional[Callable[[], torch.Tensor]] = None  # another kernel, equal result
+    # (equal, max abs error) of run's result against plain's, where the
+    # result is no single tensor held bit for bit
+    check: Optional[Callable[[object, object], Tuple[bool, float]]] = None
 
 
 def random_boxes(g, b, k, h, w, device, clusters=8):
@@ -737,7 +740,78 @@ def kernel_forms(device) -> List[Form]:
                 frames_f, gr, mode="bilinear", padding_mode="border", align_corners=False),
             nbytes=pixels_read * 3 + bounds.numel() * 4 + b * k * o * o * 3 * 4,
             ops=b * k * o * o * 3 * 9))
+
+    # K6: the track fold of a batch, held to its plain version (the ATen
+    # loop, on the card too) by ``fold_held``.  The multi-face path's and
+    # the file path's (one stream, 32 frames, T = K = 4, bf16 512-d
+    # embeddings, an int n_valid), the same with an (S,) tensor of n_valid
+    # and a padded tail, and the stream path's (8 streams x 4 frames, a
+    # tensor of n_valid, one stream idle and one short).  Bytes: the state
+    # read and written, the detections (float32 embeddings) and the
+    # per-frame outputs; operations: 14 per IoU and 6 per embedding element
+    # of each track's dot product and norms.
+    from truely_tpu_torch.pipeline import tracks
+
+    t, d = MAX_TRACKS, 512
+    for s, f, n_valid, paths in ((1, b, b, (MULTIFACE, FILE)),
+                                 (1, b, torch.tensor([b - 3], device=device), ()),
+                                 (STREAMS, STREAM_FRAMES, torch.tensor(
+                                     [4, 4, 3, 4, 0, 4, 4, 4], device=device), (STREAM,))):
+        boxes, valid, emb = fold_inputs(g_multi, s, f, t, d, device)
+        state = tracks.init_track_state(t, d, streams=s, device=device)
+        forms.append(Form(
+            "track_timeline", f"S={s} F={f} T=K={t} D={d} n_valid "
+            + ("int" if isinstance(n_valid, int) else "(S,) tensor"), paths,
+            lambda a=(state, boxes, valid, emb, n_valid): tracks.track_timeline(*a),
+            lambda a=(state, boxes, valid, emb, n_valid): tracks.track_timeline_plain(*a),
+            None, nbytes=2 * s * t * (22 + 4 * d + 20) + s * f * t * (17 + 4 * d)
+            + s * f * t * 23 + s * 4, ops=s * f * t * (14 * t + 6 * d), check=fold_held))
     return forms
+
+
+# track_sim's tolerance: K6 sums the dot product and norms of 512 float32
+# products in another order than ATen.
+FOLD_SIM_ATOL = 1e-6
+
+
+def fold_held(got, want) -> Tuple[bool, float]:
+    """K6's (state, per-frame outputs) against the plain version's: every
+    field equal bit for bit but ``track_sim``, within ``FOLD_SIM_ATOL``;
+    the error is track_sim's."""
+    (gs, go), (ws, wo) = got, want
+    exact = all(torch.equal(a, b) for a, b in zip(gs, ws)) and all(
+        torch.equal(getattr(go, n), getattr(wo, n)) for n in go._fields if n != "track_sim")
+    err = float((go.track_sim.double() - wo.track_sim.double()).abs().max())
+    return exact and err <= FOLD_SIM_ATOL, err
+
+
+def fold_inputs(g, s: int, f: int, k: int, d: int, device):
+    """(boxes (S, F, K, 4), valid (S, F, K), emb (S, F, K, D) bf16) for the
+    track fold: K faces a stream in a 1080p frame, 60-250 px, that drift
+    a pixel a frame, listed in a shuffled order, a fifth of them missed;
+    embeddings at cosine about 0.995 to a face's identity, so that the
+    counters both reset and run.  The last face leaves for 12 frames (more than
+    max_misses 10) and comes back 400 px away, so its track retires and a
+    new one spawns."""
+    def u(*shape, lo=0.0, hi=1.0):
+        return torch.empty(shape, device=device).uniform_(lo, hi, generator=g)
+
+    side = u(s, 1, k, lo=60, hi=250)
+    x0 = u(s, 1, k, lo=0, hi=1200) + torch.arange(f, device=device)[None, :, None]
+    y0 = u(s, 1, k, lo=0, hi=800) + u(s, f, k, lo=-2, hi=2)
+    i = torch.arange(f, device=device)
+    x0[:, :, -1] += 400 * (i >= 20)[None, :]
+    boxes = torch.stack([x0, y0, x0 + side, y0 + side], -1)
+    ident = torch.nn.functional.normalize(
+        torch.randn((s, 1, k, d), generator=g, device=device), dim=-1)
+    noise = torch.randn((s, f, k, d), generator=g, device=device) * (0.1 / math.sqrt(d))
+    emb = torch.nn.functional.normalize(ident + noise, dim=-1)
+    valid = u(s, f, k) > 0.2
+    valid[:, 8:20, -1] = False
+    order = torch.argsort(u(s, f, k), -1)
+    take = lambda x: torch.gather(x, 2, order.reshape(order.shape + (1,) * (x.dim() - 3))
+                                  .expand_as(x))
+    return take(boxes), torch.gather(valid, 2, order), take(emb).to(torch.bfloat16)
 
 
 SOURCES = {
@@ -749,7 +823,11 @@ SOURCES = {
                              "truely_tpu/ops/crop_pallas.py:188"),
     "crop_resize_area_fused": ("truely_tpu_torch/csrc/crop_area_fused.cu",
                                "truely_tpu/ops/crop_area_fused.py:155"),
+    # no Pallas kernel: the JAX package folds tracks with a lax.scan
+    "track_timeline": ("truely_tpu_torch/csrc/tracks.cu", "truely_tpu/pipeline/tracks.py:209"),
 }
+# K6, the track fold, runs on the multi-face paths alone.
+TRACK_FOLD = "track_timeline"
 # K3's prep: counted apart from its crops, and reported beside them.
 K3_PREP = "crop_area_integral"
 K3_PARTS = ("crop_resize_area", K3_PREP)
@@ -757,6 +835,7 @@ K3_PARTS = ("crop_resize_area", K3_PREP)
 # per-step times in the kernels line.
 MAIN_PATH = {name: SCORE for name in (*SOURCES, K3_PREP)}
 MAIN_PATH["crop_resize_area_fused"] = PROPAGATE
+MAIN_PATH[TRACK_FOLD] = MULTIFACE
 
 
 def kernel_phase(forms: List[Form]) -> List[dict]:
@@ -768,8 +847,12 @@ def kernel_phase(forms: List[Form]) -> List[dict]:
         got, want = f.run(), f.plain()
         other = f.same_as() if f.same_as else want
         torch.cuda.synchronize()
-        equal = torch.equal(got, want) and torch.equal(got, other)
-        err = float((got.double() - want.double()).abs().max()) if got.shape == want.shape else math.inf
+        if f.check:
+            equal, err = f.check(got, want)
+        else:
+            equal = torch.equal(got, want) and torch.equal(got, other)
+            err = (float((got.double() - want.double()).abs().max()) if got.shape == want.shape
+                   else math.inf)
         ms = cuda_ms(f.run)
         plain_ms = cuda_ms(f.plain)
         lib_ms = cuda_ms(f.library) if f.library else None
@@ -896,12 +979,14 @@ def launch_floor(device) -> Dict[str, float]:
 
 def launch_counters():
     from truely_tpu_torch.ops import crop_area_fused, nms, resize, yuv
+    from truely_tpu_torch.pipeline import tracks
 
     return {"i420_to_bgr": yuv.i420_to_bgr, "nms_masked_batch": nms.nms_masked_batch,
             "crop_resize_area": resize.crop_resize_area_from_integral,
             K3_PREP: resize.crop_area_integral,
             "crop_resize_bilinear": resize.crop_resize_bilinear,
-            "crop_resize_area_fused": crop_area_fused.crop_resize_area_fused}
+            "crop_resize_area_fused": crop_area_fused.crop_resize_area_fused,
+            TRACK_FOLD: tracks.track_timeline}
 
 
 def reset_launches() -> dict:
@@ -918,13 +1003,33 @@ def read_launches(counters: dict) -> Dict[str, int]:
 
 def require_launched(launches: Dict[str, int], label: str, k5: bool) -> None:
     """K1, K2, K4 and either K5 (``k5``) or both K3 kernels launched, and
-    the other stage-crop kernel not."""
+    the other stage-crop kernel not.  K6 is checked against the folds
+    (``require_folds``)."""
     crops = ("crop_resize_area_fused",) if k5 else K3_PARTS
     unused = K3_PARTS if k5 else ("crop_resize_area_fused",)
-    silent = [k for k, v in launches.items() if v <= 0 and k not in unused]
+    silent = [k for k, v in launches.items() if v <= 0 and k not in (*unused, TRACK_FOLD)]
     require(not silent, f"{label}: kernels not launched: {silent}")
     require(all(launches[k] == 0 for k in unused),
             f"{label}: {'K3' if k5 else 'K5'} launched where {crops} should run")
+
+
+def counted_folds(det) -> List[int]:
+    """Wraps ``det.track_fold`` on the instance to count its calls (every
+    multi-face path folds through it) in the returned one-item list."""
+    calls, fold = [0], det.track_fold
+
+    def counted(*args, **kwargs):
+        calls[0] += 1
+        return fold(*args, **kwargs)
+
+    det.track_fold = counted
+    return calls
+
+
+def require_folds(launches: Dict[str, int], folds: int, label: str) -> None:
+    """One K6 launch per track fold, and no fold that did not launch it."""
+    require(launches[TRACK_FOLD] == folds,
+            f"{label}: {launches[TRACK_FOLD]} K6 launches for {folds} track folds")
 
 
 def add_launches(total: Dict[str, int], launches: Dict[str, int]) -> Dict[str, int]:
@@ -1164,34 +1269,39 @@ def multiface_stage_times(det, packed: torch.Tensor, k: Optional[int] = None) ->
 
 
 def fold_profile(device) -> None:
-    """One batch's track fold (one stream, 32 frames, 4 tracks, 512-d
-    embeddings, seeded detections) under torch.profiler: its top-level
-    ATen calls, device kernels, device time and wall time.  It runs after
-    the device times, as they do, since the profiler slows later launches."""
+    """Five calls of one batch's track fold (one stream, 32 frames, 4
+    tracks, bf16 512-d embeddings from ``fold_inputs``) under
+    torch.profiler, by K6 and by its plain version: the top-level ATen
+    calls, device kernels, device time and wall time of a call of each.  It runs after the device times, as they do,
+    since the profiler slows later launches."""
     from torch.profiler import ProfilerActivity, profile
-    from truely_tpu_torch.pipeline.tracks import init_track_state, track_timeline
+    from truely_tpu_torch.pipeline import tracks
 
     g = torch.Generator(device=device).manual_seed(5)
     f, t, d = STEP_B, MAX_TRACKS, 512
-    boxes = random_boxes(g, f, t, STEP_H, STEP_W, device, clusters=t)[None]
-    valid = torch.rand((1, f, t), generator=g, device=device) > 0.2
-    emb = torch.randn((1, f, t, d), generator=g, device=device)
-    state = init_track_state(t, d, device=device)
+    boxes, valid, emb = fold_inputs(g, 1, f, t, d, device)
+    state = tracks.init_track_state(t, d, device=device)
+    calls = 5
+    for label, fold in (("K6", tracks.track_timeline), ("plain", tracks.track_timeline_plain)):
+        def run(fold=fold):
+            with torch.inference_mode():
+                for _ in range(calls):
+                    fold(state, boxes, valid, emb, f)
 
-    def fold():
-        with torch.inference_mode():
-            return track_timeline(state, boxes, valid, emb, f)
-
-    fold()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        _, wall = sync_ms(fold)
-    aten = [e for e in prof.events() if e.name.startswith("aten::")
-            and (e.cpu_parent is None or not e.cpu_parent.name.startswith("aten::"))]
-    kernels = sum(e.count for e in device_events(prof))
-    log(f"track fold profile ({f} frames, {t} tracks): {len(aten)} top-level ATen calls "
-        f"({len(aten) / f:.1f} a frame), {kernels} device kernels and copies, "
-        f"{profiled_device_us(prof) / 1e3:.3f} ms of device time in {wall:.3f} ms wall")
+        run()
+        torch.cuda.synchronize()
+        for _ in range(2):  # a window that lost kernels is taken once more, as in device_ms
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                _, wall = sync_ms(run)
+            kernels = sum(e.count for e in device_events(prof))
+            if kernels >= calls:
+                break
+        aten = [e for e in prof.events() if e.name.startswith("aten::")
+                and (e.cpu_parent is None or not e.cpu_parent.name.startswith("aten::"))]
+        log(f"track fold profile, {label} ({f} frames, {t} tracks), per call of {calls}: "
+            f"{len(aten) / calls:.1f} top-level ATen calls, {kernels / calls:.1f} device kernels "
+            f"and copies, {profiled_device_us(prof) / 1e3 / calls:.3f} ms of device time in "
+            f"{wall / calls:.3f} ms wall")
 
 
 def log_stages(label: str, times: dict) -> None:
@@ -1208,6 +1318,7 @@ def drive_tracks(det, packed: np.ndarray, n_warm: int, label: str) -> Dict[str, 
     det.analyze_i420_tracks(packed[:n_warm], fps=FPS)
     torch.cuda.synchronize()
     fallback0 = det.fallback_segments
+    folds = counted_folds(det)
     counters = reset_launches()
     t0 = time.perf_counter()
     agg, per_track, state = det.analyze_i420_tracks(packed[n_warm:], fps=FPS)
@@ -1222,6 +1333,8 @@ def drive_tracks(det, packed: np.ndarray, n_warm: int, label: str) -> Dict[str, 
     require(bool(torch.isfinite(state.box).all() and torch.isfinite(state.embedding).all()),
             f"multiface {label}: non-finite track state")
     require(int(state.processed.max()) < n, f"multiface {label}: processed {state.processed}")
+    require(folds[0] > 0, f"multiface {label}: no track fold")
+    require_folds(launches, folds[0], f"multiface {label}")
     log(f"multiface {label}: {n} sampled frames in {wall:.4f} s = {n / wall:.2f} sampled "
         f"frames/s ({n // det.config.frame_batch} batches); active tracks "
         f"{int(state.active.sum())}/{t}; counter updates per track {state.processed.tolist()}; "
@@ -1316,6 +1429,7 @@ def drive_stream(det, content: List[np.ndarray], label: str, **kw):
     feed_streams(scheduler(), [c[:3 * STREAM_FRAMES] for c in content])
     torch.cuda.synchronize()
     sched = scheduler()
+    folds = counted_folds(det)
     counters = reset_launches()
     t0 = time.perf_counter()
     events, rungs = feed_streams(sched, content)
@@ -1324,6 +1438,8 @@ def drive_stream(det, content: List[np.ndarray], label: str, **kw):
     launches = read_launches(counters)
     require(all(x.device.type == det.device.type for x in sched._states),
             f"stream {label}: state off {det.device}")
+    require((folds[0] > 0) == sched.multi_face, f"stream {label}: {folds[0]} track folds")
+    require_folds(launches, folds[0], f"stream {label}")
     pushed = sum(len(c) for c in content)
     require(sorted((e.stream_id, e.frame_index) for e in events)
             == [(i, t) for i, c in enumerate(content) for t in range(len(c))],

@@ -17,49 +17,9 @@ from truely_tpu.ops.boxes import iou_matrix as j_iou_matrix
 from truely_tpu.pipeline import tracks as jtracks
 from truely_tpu_torch.ops.boxes import iou_matrix
 from truely_tpu_torch.pipeline import tracks
+from tests.track_scenarios import D, EXACT, KW, crowd, retire_then_spawn_steps, sequence
 
 torch.set_num_threads(2)
-
-D = 8
-KW = dict(similarity_threshold=0.99, run_length_threshold=3, max_misses=2)
-EXACT = ("active", "box", "embedding", "has_prev", "counter", "flagged_count", "processed",
-         "misses", "final_counter")
-
-
-def unit(v):
-    return (v / np.linalg.norm(v, axis=-1, keepdims=True)).astype(np.float32)
-
-
-def sequence(seed, f=24, k=4, scenario="random"):
-    """(boxes (F, K, 4), valid (F, K), emb (F, K, D)): three faces that
-    drift a few px a frame, listed in a shuffled order with dropouts.
-    "ties": faces 0 and 1 share one box (equal IoUs across tracks and
-    detections).  "retire": face 2 leaves for 4 frames (more than
-    max_misses) and a new face takes its slot when it comes back."""
-    rng = np.random.default_rng(seed)
-    base = np.array([[10, 10, 50, 50], [120, 20, 170, 80], [60, 90, 100, 140]], np.float32)
-    if scenario == "ties":
-        base[1] = base[0]
-    ident = unit(rng.normal(size=(3, D)))
-    boxes = np.zeros((f, k, 4), np.float32)
-    valid = np.zeros((f, k), bool)
-    emb = np.zeros((f, k, D), np.float32)
-    for i in range(f):
-        order = rng.permutation(3)
-        for slot, face in enumerate(order):
-            boxes[i, slot] = base[face] + rng.integers(-3, 4, 4) + i
-            emb[i, slot] = unit(ident[face] + rng.normal(size=D) * 0.08)
-            gone = scenario == "retire" and face == 2 and 8 <= i < 12
-            valid[i, slot] = not gone and rng.random() > 0.15
-            if scenario == "retire" and face == 2 and i >= 12:
-                boxes[i, slot] += 200          # a new face elsewhere
-        # slot 3: noise, valid now and then (the cascade's weakest detection)
-        boxes[i, 3] = rng.uniform(0, 300, 4)
-        boxes[i, 3, 2:] += boxes[i, 3, :2]
-        emb[i, 3] = unit(rng.normal(size=D))
-        valid[i, 3] = rng.random() > 0.7
-    return boxes, valid, emb
-
 
 def jax_fold_steps(boxes, valid, emb, t=3):
     state = jtracks.init_track_state(t, D)
@@ -107,14 +67,9 @@ def test_track_step_matches_jax(scenario, seed):
 def test_retire_then_spawn_resets_the_slot():
     """One face for 6 frames, gone for 3 (> max_misses 2: retired), then a
     face elsewhere: it takes slot 0 with its counts reset."""
-    b = np.array([[10, 10, 50, 50]], np.float32)
-    e = unit(np.ones((1, D)))
-    steps = [(b, True)] * 6 + [(b, False)] * 3 + [(b + 300, True)] * 2
     state = tracks.init_track_state(2, D)
     jstate = jtracks.init_track_state(2, D)
-    for i, (box, ok) in enumerate(steps):
-        emb = unit(e + np.float32(0.2) * i)
-        v = np.array([ok])
+    for i, (box, v, emb) in enumerate(retire_then_spawn_steps()):
         state, _ = tracks.track_step(state, torch.from_numpy(box)[None],
                                      torch.from_numpy(v)[None], torch.from_numpy(emb)[None], **KW)
         jstate, _ = jtracks.track_step(jstate, jnp.asarray(box), jnp.asarray(v),
@@ -125,7 +80,7 @@ def test_retire_then_spawn_resets_the_slot():
             assert not bool(state.active[0, 0])
     assert_state_equal(tracks.stream_state(state, 0), jstate)
     assert bool(state.active[0, 0]) and int(state.processed[0, 0]) == 1
-    np.testing.assert_array_equal(state.box[0, 0].numpy(), b[0] + 300)
+    np.testing.assert_array_equal(state.box[0, 0].numpy(), np.float32([310, 310, 350, 350]))
 
 
 @pytest.mark.parametrize("n_valid", [24, 17])
@@ -170,6 +125,112 @@ def test_batched_fold_equals_solo_folds():
             torch.from_numpy(valid)[None], torch.from_numpy(emb)[None], n_valid[s], **KW)
         for name, a, b in zip(EXACT, tracks.stream_state(state, s), tracks.stream_state(solo, 0)):
             assert torch.equal(a, b), (s, name)
+
+
+def assert_fold_matches_jax(state, outs, ref_state, ref_outs, prefix=""):
+    """A solo fold of the port's (S = 1 tensors) against JAX's."""
+    assert_state_equal(tracks.stream_state(state, 0), ref_state, prefix)
+    for name in ("track_flagged", "track_box", "track_active", "track_updated"):
+        np.testing.assert_array_equal(getattr(outs, name)[0].numpy(),
+                                      np.asarray(getattr(ref_outs, name)), err_msg=prefix + name)
+    np.testing.assert_allclose(outs.track_sim[0].numpy(), np.asarray(ref_outs.track_sim),
+                               atol=1e-5, err_msg=prefix + "track_sim")
+
+
+@pytest.mark.parametrize("emb_dtype", [torch.float32, torch.bfloat16])
+def test_cell_shape_timeline_matches_jax(emb_dtype):
+    """The multi-face benchmark cell's fold (S = 1, F = 32, T = K = 4,
+    512-d embeddings, 29 valid frames) on the inputs of the card's
+    ``test_k6_cell_shape_matches_plain``: bf16 embeddings are folded as
+    their float32 values, in both packages."""
+    boxes, valid, emb = sequence(21, f=32, d=512)
+    emb = torch.from_numpy(emb).to(emb_dtype)
+    ref_state, ref_outs = jtracks.track_timeline(
+        jtracks.init_track_state(4, 512), jnp.asarray(boxes), jnp.asarray(valid),
+        jnp.asarray(emb.float().numpy()), jnp.int32(29), **KW)
+    state, outs = tracks.track_timeline(
+        tracks.init_track_state(4, 512), torch.from_numpy(boxes)[None],
+        torch.from_numpy(valid)[None], emb[None], 29, **KW)
+    assert_fold_matches_jax(state, outs, ref_state, ref_outs)
+    assert int(outs.track_updated.sum()) > 20
+
+
+def test_batched_fold_matches_jax():
+    """``test_batched_fold_equals_solo_folds``' S = 3 fold, over two
+    batches with an (S,) tensor of n_valid (the card's
+    ``test_k6_batched_fold_matches_plain``), against a JAX fold of each
+    stream over the same two batches."""
+    seqs = [sequence(10 + s, scenario=sc) for s, sc in enumerate(("random", "ties", "retire"))]
+    n_valid = [24, 9, 16]
+    stacked = [torch.from_numpy(np.stack([q[j] for q in seqs])) for j in range(3)]
+    state = tracks.init_track_state(3, D, streams=3)
+    ref = [jtracks.init_track_state(3, D) for _ in seqs]
+    for half in (slice(0, 12), slice(12, 24)):
+        nv = [max(0, min(n, half.stop) - half.start) for n in n_valid]
+        state, outs = tracks.track_timeline(state, *(x[:, half] for x in stacked),
+                                            torch.tensor(nv), **KW)
+        for s, (boxes, valid, emb) in enumerate(seqs):
+            ref[s], ref_outs = jtracks.track_timeline(
+                ref[s], jnp.asarray(boxes[half]), jnp.asarray(valid[half]),
+                jnp.asarray(emb[half]), jnp.int32(nv[s]), **KW)
+            assert_fold_matches_jax(tracks.TrackState(*(x[s:s + 1] for x in state)),
+                                    tracks.TrackFrameOut(*(x[s:s + 1] for x in outs)),
+                                    ref[s], ref_outs, f"{half} stream {s} ")
+
+
+@pytest.mark.parametrize("t, k, d", [(36, 48, 64), (40, 48, 64)])
+def test_crowd_timeline_matches_jax(t, k, d):
+    """More than 32 tracks and detections (the card's
+    ``test_k6_any_shape_matches_plain``): with 36 slots for 40 faces some
+    detections find no free slot; with 40 the returning faces spawn."""
+    boxes, valid, emb = crowd(6, k=k, d=d)
+    ref_state, ref_outs = jtracks.track_timeline(
+        jtracks.init_track_state(t, d), jnp.asarray(boxes), jnp.asarray(valid),
+        jnp.asarray(emb), jnp.int32(21), **KW)
+    state, outs = tracks.track_timeline(
+        tracks.init_track_state(t, d), torch.from_numpy(boxes)[None],
+        torch.from_numpy(valid)[None], torch.from_numpy(emb)[None], 21, **KW)
+    assert_fold_matches_jax(state, outs, ref_state, ref_outs)
+    assert int(outs.track_flagged.sum()) > 0 and int(state.active.sum()) > 30
+
+
+@pytest.mark.parametrize("t, k, d, device", [
+    (3, 4, D, "cpu"),
+    (33, 4, D, "meta"),      # more tracks than a warp has lanes
+    (3, 33, D, "meta"),      # more detections
+    (4, 4, 2049, "meta"),    # a large T * D
+])
+def test_track_timeline_takes_the_plain_version(t, k, d, device):
+    """CPU tensors take the plain version at every shape, uncounted; off
+    the CPU no shape does: every fold goes to K6, which takes only CUDA
+    tensors (on the meta device it raises, launching nothing)."""
+    launches = tracks.track_timeline.launches
+    boxes, valid, emb = (torch.from_numpy(x)[None] for x in sequence(5, k=max(k, 4), d=d))
+    boxes, valid, emb = boxes[:, :, :k], valid[:, :, :k], emb[:, :, :k]
+    want_state, want = tracks.track_timeline_plain(tracks.init_track_state(t, d), boxes, valid,
+                                                   emb, 17, **KW)
+    got_state, got = tracks.track_timeline(tracks.init_track_state(t, d), boxes, valid, emb, 17,
+                                           **KW)
+    for a, b in zip((*got_state, *got), (*want_state, *want)):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    if device != "cpu":
+        with pytest.raises(ValueError, match="CUDA"):
+            tracks.track_timeline(tracks.init_track_state(t, d, device=device),
+                                  *(x.to(device) for x in (boxes, valid, emb)), 17, **KW)
+    assert tracks.track_timeline.launches == launches
+
+
+def test_track_timeline_k6_refuses_tensors_off_cuda():
+    """A fold off the CPU goes to K6, which takes only CUDA tensors: on
+    another device, with an int or an (S,) tensor of n_valid, it raises,
+    launching nothing."""
+    launches = tracks.track_timeline.launches
+    boxes, valid, emb = (torch.from_numpy(x)[None].to("meta") for x in sequence(5))
+    for n_valid in (17, torch.tensor([17], device="meta")):
+        with pytest.raises(ValueError, match="CUDA"):
+            tracks.track_timeline(tracks.init_track_state(3, D, device="meta"), boxes, valid,
+                                  emb, n_valid, **KW)
+    assert tracks.track_timeline.launches == launches
 
 
 def test_track_scores_match_jax():

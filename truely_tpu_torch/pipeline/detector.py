@@ -640,7 +640,8 @@ class Detector:
 
     def track_fold(self, state: TrackState, boxes: torch.Tensor, valid: torch.Tensor,
                    emb: torch.Tensor, n_valid) -> Tuple[TrackState, object]:
-        """``track_timeline`` of (S, F, T, ...) multi-face outputs."""
+        """``track_timeline`` of (S, F, T, ...) multi-face outputs: one
+        launch of kernel K6 on the card, the plain fold on the CPU."""
         with span("tracks.fold"), torch.inference_mode():
             return track_timeline(
                 state, boxes, valid, emb, n_valid,

@@ -9,18 +9,25 @@ Every function works on a leading stream axis: the state is (S, T, ...)
 and a frame's detections are (S, K, ...), so the stream scheduler folds
 all its streams in one batched pass where the JAX package maps a solo fold
 over them.  A solo analysis is S = 1.  The greedy match is a fixed
-``min(T, K)`` steps of a flat argmax over each stream's (T, K) IoU matrix,
-and ``track_timeline`` folds the frames of a batch one after another, all
-on the device with no host sync.
+``min(T, K)`` steps of a flat argmax over each stream's (T, K) IoU matrix.
+
+``track_timeline`` folds the frames of a batch one after another with no
+host sync.  On CUDA tensors it is one launch of kernel K6
+(``csrc/tracks.cu``: a CTA per stream, the frames in sequence), whatever
+the shape; ``track_timeline_plain``, a loop of ``track_step`` over the
+frames, is its plain version, taken on CPU tensors.
 """
 
 from __future__ import annotations
 
+import ctypes
+import functools
 from typing import NamedTuple, Tuple
 
 import numpy as np
 import torch
 
+from truely_tpu_torch.ops import cuda_build
 from truely_tpu_torch.ops.boxes import iou_matrix
 from truely_tpu_torch.ops.temporal import weighted_score
 
@@ -177,7 +184,7 @@ def track_step(
     return new_state, out
 
 
-def track_timeline(
+def track_timeline_plain(
     state: TrackState,
     boxes: torch.Tensor,     # (S, F, K, 4)
     valid: torch.Tensor,     # (S, F, K)
@@ -185,8 +192,9 @@ def track_timeline(
     n_valid_frames,          # int, or (S,) tensor
     **kwargs,
 ) -> Tuple[TrackState, TrackFrameOut]:
-    """Fold a batch of F frames of every stream through the tracker, frame
-    after frame.  Frames at index >= n_valid_frames of their stream are
+    """Plain version of :func:`track_timeline`: a batch of F frames of
+    every stream folded through the tracker, ``track_step`` frame after
+    frame.  Frames at index >= n_valid_frames of their stream are
     inert: they keep the state as it was.  Returns the final state and the
     per-frame outputs stacked to (S, F, T, ...)."""
     s, f = boxes.shape[:2]
@@ -202,6 +210,79 @@ def track_timeline(
             for a, b in zip(new, state)))
         outs.append(out)
     return state, TrackFrameOut(*(torch.stack(x, dim=1) for x in zip(*outs)))
+
+
+@functools.lru_cache(maxsize=None)
+def _workspace_words(t: int, k: int) -> int:
+    """int32 words of K6's scratch per stream at T tracks and K detections."""
+    fn = cuda_build.load("tracks").tt_track_fold_workspace_words
+    fn.argtypes, fn.restype = [ctypes.c_int, ctypes.c_int], ctypes.c_longlong
+    return fn(t, k)
+
+
+def track_timeline(
+    state: TrackState,
+    boxes: torch.Tensor,     # (S, F, K, 4)
+    valid: torch.Tensor,     # (S, F, K)
+    emb: torch.Tensor,       # (S, F, K, D)
+    n_valid_frames,          # int, or (S,) tensor
+    *,
+    similarity_threshold: float = 0.99,
+    run_length_threshold: int = 15,
+    match_iou: float = 0.3,
+    max_misses: int = 10,
+) -> Tuple[TrackState, TrackFrameOut]:
+    """Fold a batch of F frames of every stream through the tracker, frame
+    after frame.  Frames at index >= n_valid_frames of their stream are
+    inert: they keep the state as it was.  Returns the final state and the
+    per-frame outputs stacked to (S, F, T, ...), all new tensors (the input
+    state is not written).
+
+    The plain version on CPU tensors; kernel K6 on CUDA tensors of any
+    shape, one launch for the batch, counted in ``track_timeline.launches``."""
+    rules = dict(similarity_threshold=similarity_threshold,
+                 run_length_threshold=run_length_threshold, match_iou=match_iou,
+                 max_misses=max_misses)
+    if boxes.device.type == "cpu":
+        return track_timeline_plain(state, boxes, valid, emb, n_valid_frames, **rules)
+    s, f, k = boxes.shape[:3]
+    t, d = state.box.shape[1], emb.shape[-1]
+    if (boxes.shape != (s, f, k, 4) or valid.shape != (s, f, k) or emb.shape != (s, f, k, d)
+            or state.box.shape != (s, t, 4) or state.embedding.shape != (s, t, d)):
+        raise ValueError(f"track_timeline: shape mismatch: state box {tuple(state.box.shape)}, "
+                         f"embedding {tuple(state.embedding.shape)}; boxes "
+                         f"{tuple(boxes.shape)}, valid {tuple(valid.shape)}, emb "
+                         f"{tuple(emb.shape)}")
+    dev = boxes.device
+    if isinstance(n_valid_frames, torch.Tensor):
+        n_dev = n_valid_frames.to(dev, torch.int32).expand(s).contiguous()
+        n_int = 0
+    else:
+        n_dev, n_int = None, int(n_valid_frames)
+    dtypes = (torch.bool, torch.float32, torch.float32, torch.bool) + (torch.int32,) * 5
+    state = TrackState(*(x.to(dtype).contiguous() for x, dtype in zip(state, dtypes)))
+    ins = (boxes.to(torch.float32).contiguous(), valid.to(torch.bool).contiguous(),
+           emb.float().contiguous())
+    cuda_build.require_cuda("track_timeline", *state, *ins, n_dev)
+    new = TrackState(*(torch.empty_like(x) for x in state))
+    out = TrackFrameOut(
+        track_flagged=torch.empty((s, f, t), dtype=torch.bool, device=dev),
+        track_sim=torch.empty((s, f, t), dtype=torch.float32, device=dev),
+        track_box=torch.empty((s, f, t, 4), dtype=torch.float32, device=dev),
+        track_active=torch.empty((s, f, t), dtype=torch.bool, device=dev),
+        track_updated=torch.empty((s, f, t), dtype=torch.bool, device=dev))
+    workspace = torch.empty((s, _workspace_words(t, k)), dtype=torch.int32, device=dev)
+    P, I, F32 = cuda_build.P, cuda_build.I, ctypes.c_float
+    cuda_build.launch(
+        "tracks", "tt_track_fold", [P] * 13 + [I] + [P] * 15 + [I] * 5 + [F32, I, F32, I],
+        *(x.data_ptr() for x in (*state, *ins)), n_dev.data_ptr() if n_dev is not None else None,
+        n_int, *(x.data_ptr() for x in (*new, *out, workspace)), s, f, t, k, d,
+        similarity_threshold, run_length_threshold, match_iou, max_misses, device=dev)
+    track_timeline.launches += 1
+    return new, out
+
+
+track_timeline.launches = 0
 
 
 def track_scores(state: TrackState, frame_count: int, fps: int, *,
