@@ -1,6 +1,6 @@
 """How ``correct`` is decided: the numbers that hold what the timed path
 produced against the plain reference, each against its limit from the
-configuration file (``limits``, by kind of check).
+configuration file (``limits``; the model module picks the kind of check).
 
 Single face (``records``), per sampled clip: every sampled frame's record
 (has a face, crop bounds, drawn, flagged, run-length counter) and the

@@ -1,15 +1,18 @@
 """Closed-loop cells: one caller analyses in-memory packed I420 clips one
-after another through the port's public entry (``Detector.analyze_i420``,
-or ``analyze_i420_tracks`` for a multi-face configuration), on one card
-or on a data mesh of ``dp`` cards (``Detector(mesh=)``).
+after another through the entry that the cell's model gives (the port's
+``analyze_i420``, or ``analyze_i420_tracks`` for a multi-face
+configuration), on one card or on a data mesh of ``dp`` cards
+(``Detector(mesh=)``).
 
 The window opens after set-up and closes at the first clip that finishes
 at or after ``seconds``: every clip in it is whole, and the rate is its
 sampled frames over its length.  With tracing, the profiler covers the
 window's first clips, up to the first that finishes at or after
 ``TRACE_SECONDS``; the readings taken on the host's clock (the fold's
-spans, the step's share of the peak) come from the clips after it, which
-run without the profiler's overhead.
+spans, the program's spans, the step's share of the peak) come from the
+clips after it, which run without the profiler's overhead.  The program's
+spans are collected (``profiling.collect()``) only there, from the trace's
+end to the window's end, so an untraced run collects none.
 """
 
 from __future__ import annotations
@@ -21,10 +24,8 @@ from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 
-from benchmark import check, content, spec, traffic, trace, weights
+from benchmark import check, content, spec, traffic, trace
 from benchmark.outcome import Outcome, kernel_launches
-from benchmark.reference import analysis as ref
-from benchmark.reference.config import DetectorConfig as RefConfig
 from benchmark.reference.layers import fp8_matmuls
 
 TRACE_SECONDS = 6.0
@@ -68,23 +69,20 @@ def _cards(dp: int) -> List[torch.device]:
 
 
 def build(cell: spec.Cell, seed: int, device: Optional[torch.device] = None):
-    """(detector, entry, param trees) of a cell:
+    """(detector, entry, param trees) of a cell, from its model:
     weights drawn from ``seed``; ``device`` replaces the card (the CPU
     tests)."""
-    from truely_tpu_torch.config import DetectorConfig
     from truely_tpu_torch.parallel.mesh import make_mesh
-    from truely_tpu_torch.pipeline.detector import Detector
 
     conf = cell.config
+    model = spec.model(conf)
     dp = conf["dp"]
     first = device or torch.device("cuda", 0)
-    trees = weights.seeded_trees(seed, first, conf["assumed"])
+    trees = model.seeded_trees(seed, first, conf)
     devices = [first] * dp if device is not None else _cards(dp)
     mesh = make_mesh((dp, 1), ("data", "model"), devices=devices) if dp > 1 else None
-    det = Detector(DetectorConfig(**spec.detector_kwargs(conf["detector"])), params=trees,
-                   device=first, mesh=mesh)
-    entry = det.analyze_i420_tracks if conf["detector"]["multi_face"] else det.analyze_i420
-    return det, entry, trees
+    det = model.detector(conf, trees, first, mesh)
+    return det, model.entry(det, conf), trees
 
 
 def run(cell: spec.Cell, seed: int, seconds: float, traced: bool, t_start: float,
@@ -126,32 +124,40 @@ def run(cell: spec.Cell, seed: int, seconds: float, traced: bool, t_start: float
     tracer = trace.Tracer(trace_path) if traced else None
     traced_units, host_from, host_folds = 0, 0.0, 0
     launches: Dict[str, int] = {}
+    collected: list = []  # the program's spans from the trace's end to the window's end
     if tracer:  # the profiler's own start-up stays out of the window
+        from truely_tpu_torch.utils import profiling
+
         tracer.start()
         before = kernel_launches()
+    after_trace = contextlib.ExitStack()
     w0 = time.perf_counter()
-    while True:
-        clip = next(clips)
-        fb0 = det.fallback_segments
-        t0 = time.perf_counter() - w0
-        with tracer.span("bench.clip") if tracer and tracer.on else contextlib.nullcontext():
-            res = entry(ring.clip(clip.start, clip.frames), fps)
-        t1 = time.perf_counter() - w0
-        fb = det.fallback_segments - fb0
-        units.append(Unit(clip.start, clip.frames, t0, t1, fb,
-                          steps_of(clip.frames, batch, k, fb), res))
-        done = t1 >= seconds
-        if tracer and tracer.on and (t1 >= TRACE_SECONDS or done):
-            tracer.stop()
-            after = kernel_launches()
-            launches = {n: after[n] - before[n] for n in after}
-            traced_units, host_folds = len(units), len(folds)
-            host_from = time.perf_counter() - w0
-        if done:
-            break
+    with after_trace:
+        while True:
+            clip = next(clips)
+            fb0 = det.fallback_segments
+            t0 = time.perf_counter() - w0
+            with tracer.span("bench.clip") if tracer and tracer.on else contextlib.nullcontext():
+                res = entry(ring.clip(clip.start, clip.frames), fps)
+            t1 = time.perf_counter() - w0
+            fb = det.fallback_segments - fb0
+            units.append(Unit(clip.start, clip.frames, t0, t1, fb,
+                              steps_of(clip.frames, batch, k, fb), res))
+            done = t1 >= seconds
+            if tracer and tracer.on and (t1 >= TRACE_SECONDS or done):
+                tracer.stop()
+                after = kernel_launches()
+                launches = {n: after[n] - before[n] for n in after}
+                traced_units, host_folds = len(units), len(folds)
+                host_from = time.perf_counter() - w0
+                collected = after_trace.enter_context(profiling.collect())
+            if done:
+                break
     window_s = units[-1].t1
     peak = max(torch.cuda.max_memory_allocated(c) for c in cards) if on_card else 0
-    fold_s = folds[host_folds:]
+    spans: Dict[str, List[float]] = {"track_fold": folds[host_folds:]}
+    for sp in collected:
+        spans.setdefault(sp.name, []).append(sp.end - sp.start)
 
     # The reference, once the window has closed and the program is freed.
     del det, entry
@@ -162,9 +168,9 @@ def run(cell: spec.Cell, seed: int, seconds: float, traced: bool, t_start: float
     found, controlled = check_units(cell, chosen, trees, ring, cards[0], control)
     return Outcome(
         setup_s=setup_s, window_s=window_s, units=units, traced_units=traced_units,
-        host_from=host_from, launches=launches, spans={"track_fold": fold_s},
+        host_from=host_from, launches=launches, spans=spans,
         trace_summary=tracer.summary(len(cards)) if tracer else None,
-        numbers=found, limits=conf["limits"]["tracks" if multi else "records"],
+        numbers=found, limits=conf["limits"],
         attempted=len(units), failed=0,
         memory_peak_bytes=peak, cards=len(cards), checked=len(chosen), control=controlled)
 
@@ -172,28 +178,19 @@ def run(cell: spec.Cell, seed: int, seconds: float, traced: bool, t_start: float
 def check_units(cell: spec.Cell, units: List[Unit], trees, ring: content.Ring, device,
                 control: bool) -> Tuple[Dict[str, float], Optional[Dict[str, float]]]:
     """The check's numbers of the program's answers for ``units`` against
-    the reference; with ``control``, also those of the control (the
-    reference with its nets' operands in float8 put in the program's
+    the model's reference; with ``control``, also those of the control
+    (the reference with its nets' operands in float8 put in the program's
     place)."""
-    conf, fps = cell.config, cell.traffic["fps"]
-    ref_cfg = RefConfig(**spec.detector_kwargs(conf["detector"], reference=True))
-    nets = ref.build_nets(trees, device)
-    multi = conf["detector"]["multi_face"]
-    rows = conf["detector"]["frame_batch"] // conf["dp"]
-
-    def reference(frames):
-        if multi:
-            return ref.analyze_tracks(nets, frames, fps, ref_cfg, yuv=True, device=device)
-        return ref.analyze(nets, frames, fps, ref_cfg, yuv=True, device=device, rows=rows)
-
+    conf = cell.config
+    model = spec.model(conf)
+    reference = model.reference(conf, trees, device, cell.traffic["fps"],
+                                conf["detector"]["frame_batch"] // conf["dp"])
     got, want, low = [], [], []
     for u in units:
         frames = ring.clip(u.start, u.frames)
-        got.append(check.tracks_of(u.result) if multi
-                   else check.records_of(u.result))
+        got.append(model.answer(u.result))
         want.append(reference(frames))
         if control:
             with fp8_matmuls():
                 low.append(reference(frames))
-    kind = "tracks" if multi else "records"
-    return check.numbers(kind, got, want), check.numbers(kind, low, want) if control else None
+    return model.check(conf, got, want), model.check(conf, low, want) if control else None

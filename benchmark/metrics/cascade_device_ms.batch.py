@@ -1,0 +1,10 @@
+"""cascade_device_ms.batch: device milliseconds of the operations launched
+while ``mtcnn.cascade`` (the detector's nets, top-k, NMS and stage crops)
+was the innermost program range, per sampled frame of the traced clips.
+(``benchmark.program_spans``; None without the span.)"""
+
+from benchmark.program_spans import device_ms_per_frame
+
+
+def read(cell, out):
+    return device_ms_per_frame(out, "mtcnn.cascade")

@@ -1,13 +1,13 @@
 """step_mfu: the whole frame step's share (%) of the cards' bf16 peak:
 the operations that the window's sampled frames need (counted from the
-configuration's shapes by ``benchmark.counts.nets``, per frame and kind
+configuration's shapes by its model's ``row_flops``, per frame and kind
 of step, padding and fallback re-runs left out) over the time they took
 and the peak of the cards used.  In a traced run, only the clips after
 the trace are counted, over the time from the trace's end."""
 
+from benchmark import spec
 from benchmark.closed_loop import frame_rows
 from benchmark.counts import BF16_FLOPS_PER_S
-from benchmark.counts.nets import row_flops
 
 
 def read(cell, out):
@@ -15,7 +15,7 @@ def read(cell, out):
     if not units:
         return None
     det, mix = cell.config["detector"], cell.traffic
-    per_row = row_flops(det, mix["height"], mix["width"])
+    per_row = spec.model(cell.config).row_flops(det, mix["height"], mix["width"])
     k = det["detect_interval"]
     total = sum(n * per_row[kind] for u in units
                 for kind, n in frame_rows(u.frames, det["frame_batch"], k).items())

@@ -37,7 +37,7 @@ class Outcome(NamedTuple):
     traced_units: int            # how many of them the trace covers
     host_from: float             # seconds into the window at which the trace had stopped
     launches: Dict[str, int]     # kernel launches in the traced part
-    spans: Dict[str, List[float]]  # benchmark spans after the trace: name -> host seconds
+    spans: Dict[str, List[float]]  # after the trace: span name -> each span's host seconds
     trace_summary: Optional[TraceSummary]
     numbers: Dict[str, float]    # what the check compared
     limits: Dict[str, float]

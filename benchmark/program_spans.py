@@ -13,32 +13,24 @@ device work it launched and the device idle time it was open for.
   window (``OUTSIDE``: no program range open);
 - ``calls``: the range's events that start in the window.
 
-``readings(...)`` turns the table, the spans the program recorded after
-the trace (``profiling.collect()``) and the frames of the run into the
-per-layer readings named in ``READINGS``; a reading whose span is absent
-is None.
-
-The harness does not call this module yet: ``trace.summarize`` deletes the
-trace before a reader could see it, and ``closed_loop.run`` opens no
-``collect()``.  Until they do, ``python3 -m benchmark.program_spans
---workload <cell> --seed <n> --seconds <s>`` makes one traced run of a cell
-as ``run.py --trace 1`` does, with those two wrapped from outside, and
-prints the readings in one JSON line (none for a program without spans),
-with the traced run's end-to-end metrics.
+In a ``--trace 1`` run ``trace.Tracer.summary`` keeps the table as
+``TraceSummary.ranges`` and ``closed_loop.run`` puts the seconds of the
+spans that the program records after the trace (``profiling.collect()``)
+into ``Outcome.spans``.  A reader under ``metrics/`` names its span and
+takes one of four readings of a run's ``Outcome``: ``host_ms_per_frame``,
+``device_ms_per_frame``, ``idle_share`` and ``launches_per_call``; each is
+None where the span is absent.
 """
 
 from __future__ import annotations
 
 import bisect
-from typing import Dict, Iterable, List, NamedTuple, Optional, Tuple
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
-from benchmark.trace import DEVICE_CATEGORIES, SPAN_PREFIX, WINDOW, _clip, _union
+from benchmark.trace import SPAN_PREFIX, WINDOW, _union, busy_and_gaps, device_events
 
 RUNTIME_CATEGORIES = ("cuda_runtime", "cuda_driver")
 OUTSIDE = ""  # idle time with no program range open
-# Device ops that the readings' coverage counts besides the three stages'.
-K1_KERNEL = "i420_to_bgr_kernel"
-STAGES = ("mtcnn.pyramid", "mtcnn.cascade", "detector.embed")
 
 
 class Range(NamedTuple):
@@ -51,8 +43,6 @@ class Range(NamedTuple):
 class Table(NamedTuple):
     window_s: float
     idle_s: float                 # the first card's idle seconds in the window
-    busy_s: float                 # the first card's busy seconds in the window
-    covered_s: float              # device seconds of the stages, K1 and the copies
     ranges: Dict[str, Range]      # by range name; OUTSIDE holds idle time in no range
 
 
@@ -153,32 +143,17 @@ def ranges(events: List[dict]) -> Optional[Table]:
             launched[corr] = lookup[e["tid"]].at(float(e["ts"]))
     device: Dict[str, List[float]] = {}
     per_card: Dict[object, List[Tuple[float, float]]] = {}
-    covered = 0.0
-    for e in events:
-        if e.get("ph") != "X" or e.get("cat") not in DEVICE_CATEGORIES:
-            continue
-        s, d = float(e["ts"]), float(e.get("dur", 0))
-        if s + d <= lo or s >= hi:
-            continue
-        per_card.setdefault((e.get("args") or {}).get("device", e.get("pid")), []).append(
-            (s, s + d))
-        sec = (min(s + d, hi) - max(s, lo)) / 1e6
+    for e, s, end, card in device_events(events, lo, hi):
+        per_card.setdefault(card, []).append((s, end))
+        sec = (min(end, hi) - max(s, lo)) / 1e6
         name = launched.get((e.get("args") or {}).get("correlation"))
-        if (name in STAGES or e.get("cat") == "gpu_memcpy"
-                or K1_KERNEL in e.get("name", "")):
-            covered += sec
         if name is not None:
             row = device.setdefault(name, [0.0, 0])
             row[0] += sec
             row[1] += 1
     if not per_card:
         return None
-    first = _union(_clip(per_card[sorted(per_card, key=str)[0]], lo, hi))
-    gaps, t = [], lo
-    for s, e in first + [(hi, hi)]:
-        if s > t:
-            gaps.append((t, s))
-        t = max(t, e)
+    _, gaps = busy_and_gaps(per_card, lo, hi)
     idle = _overlap(gaps, lookup[main].pieces if main in lookup else [])
     # The idle time outside every range, from the ranges' union: with the
     # ranges' idle seconds it adds up to the window's idle time only if the
@@ -191,126 +166,42 @@ def ranges(events: List[dict]) -> Optional[Table]:
     names = set(device) | set(idle) | set(calls)
     table = {n: Range(device.get(n, [0.0, 0])[0], int(device.get(n, [0.0, 0])[1]),
                       idle.get(n, 0.0), calls.get(n, 0)) for n in names}
-    return Table(window_s=(hi - lo) / 1e6, idle_s=idle_s,
-                 busy_s=sum(e - s for s, e in first) / 1e6, covered_s=covered, ranges=table)
+    return Table(window_s=(hi - lo) / 1e6, idle_s=idle_s, ranges=table)
 
 
-# name: (unit, what it reads)
-READINGS = {
-    "stage_host_ms.batch": ("ms", "detector.stage host ms per sampled frame after the trace"),
-    "stage_idle.batch": ("%", "idle share of the traced window with detector.stage innermost"),
-    "sync_host_ms.batch": ("ms", "detector.sync host ms per sampled frame after the trace"),
-    "pyramid_device_ms.batch": ("ms", "device ms launched in mtcnn.pyramid per traced frame"),
-    "cascade_device_ms.batch": ("ms", "device ms launched in mtcnn.cascade per traced frame"),
-    "embed_device_ms.batch": ("ms", "device ms launched in detector.embed per traced frame"),
-    "fold_launches": ("count", "device ops launched in tracks.fold per call"),
-    "fold_idle.batch": ("%", "idle share of the traced window with tracks.fold innermost"),
-}
+def _row(out, span: str) -> Tuple[Optional[Table], Optional[Range]]:
+    """The table of a run's ``Outcome`` and its row of ``span``."""
+    table = out.trace_summary.ranges if out.trace_summary is not None else None
+    return table, table.ranges.get(span) if table is not None else None
 
 
-def readings(table: Optional[Table], traced_frames: int, host_spans: Iterable,
-             host_frames: int) -> Dict[str, Optional[float]]:
-    """``READINGS`` from the trace's table (``traced_frames``: the sampled
-    frames of the traced clips) and the spans recorded after the trace
-    (``host_spans``: ``profiling.Span``; ``host_frames``: their clips'
-    sampled frames).  None where the reading's span is absent."""
-    host: Dict[str, float] = {}
-    for sp in host_spans:
-        host[sp.name] = host.get(sp.name, 0.0) + (sp.end - sp.start)
-    rows = table.ranges if table is not None else {}
-
-    def per_host_frame(name):
-        return 1e3 * host[name] / host_frames if name in host and host_frames else None
-
-    def per_traced_frame(name):
-        return (1e3 * rows[name].device_s / traced_frames
-                if name in rows and rows[name].launches and traced_frames else None)
-
-    def idle_share(name):
-        return (100.0 * rows[name].idle_s / table.window_s
-                if name in rows and rows[name].calls and table.window_s > 0 else None)
-
-    fold = rows.get("tracks.fold")
-    return {
-        "stage_host_ms.batch": per_host_frame("detector.stage"),
-        "stage_idle.batch": idle_share("detector.stage"),
-        "sync_host_ms.batch": per_host_frame("detector.sync"),
-        "pyramid_device_ms.batch": per_traced_frame("mtcnn.pyramid"),
-        "cascade_device_ms.batch": per_traced_frame("mtcnn.cascade"),
-        "embed_device_ms.batch": per_traced_frame("detector.embed"),
-        "fold_launches": fold.launches / fold.calls if fold and fold.calls else None,
-        "fold_idle.batch": idle_share("tracks.fold"),
-    }
+def host_ms_per_frame(out, span: str) -> Optional[float]:
+    """Host milliseconds of the program's ``span`` spans collected after
+    the trace, per sampled frame of the clips after it."""
+    seconds = out.spans.get(span) or []
+    frames = sum(u.frames for u in out.units[out.traced_units:])
+    return 1e3 * sum(seconds) / frames if seconds and frames else None
 
 
-def main(argv=None) -> int:
-    import argparse
-    import contextlib
-    import json
-    import os
-    import sys
-    import tempfile
-    import time
-
-    t_start = time.perf_counter()
-    p = argparse.ArgumentParser(description="one traced run of a cell, with the program's "
-                                "spans read from its trace")
-    p.add_argument("--workload", required=True)
-    p.add_argument("--seed", type=int, required=True)
-    p.add_argument("--seconds", type=float, required=True)
-    args = p.parse_args(argv)
-    from benchmark import run as bench_run
-
-    for var, sub in bench_run.CACHES.items():
-        os.environ[var] = os.path.join(bench_run.ROOT, ".bench_cache", sub)
-
-    import torch
-
-    from benchmark import closed_loop, outcome, spec, trace
-    from truely_tpu_torch.utils import profiling
-
-    cell = spec.load(args.workload)
-    if not torch.cuda.is_available() or torch.cuda.device_count() < cell.chips:
-        print(f"{cell.name} needs {cell.chips} CUDA device(s)", file=sys.stderr)
-        return 2
-    kept: Dict[str, object] = {}
-    load_events, stop = trace.load_events, trace.Tracer.stop
-
-    def keep_events(path):
-        kept["events"] = load_events(path)
-        return kept["events"]
-
-    def note_stop(self):
-        stop(self)
-        kept["stopped_at"] = time.perf_counter()
-
-    trace.load_events, trace.Tracer.stop = keep_events, note_stop
-    path = os.path.join(tempfile.gettempdir(), f"bench_trace_{os.getpid()}.json")
-    # A program without spans (the parent commit) records none.
-    collect = getattr(profiling, "collect", lambda: contextlib.nullcontext([]))
-    try:
-        with collect() as spans:
-            out = closed_loop.run(cell, args.seed, args.seconds, True, t_start, path)
-    finally:
-        trace.load_events, trace.Tracer.stop = load_events, stop
-    table = ranges(kept.get("events", []))
-    after = [s for s in spans if s.start >= kept.get("stopped_at", float("inf"))]
-    traced = sum(u.frames for u in out.units[:out.traced_units])
-    host_frames = sum(u.frames for u in out.units[out.traced_units:])
-    line, _ = outcome.report(cell, out, True)
-    line["end_to_end_traced"] = {m["name"]: spec.metric_reader(m["name"])(cell, out)
-                                 for m in cell.end_to_end}
-    got = readings(table, traced, after, host_frames)
-    line["program_spans"] = {n: {"value": v, "unit": READINGS[n][0]}
-                             for n, v in got.items() if v is not None}
-    if table is not None:
-        line["program_ranges"] = {n: r._asdict() for n, r in sorted(table.ranges.items())}
-        line["coverage"] = {"covered_s": table.covered_s, "busy_s": table.busy_s,
-                            "idle_s": table.idle_s, "window_s": table.window_s,
-                            "idle_in_ranges_s": sum(r.idle_s for r in table.ranges.values())}
-    print(json.dumps(line), flush=True)
-    return 0
+def device_ms_per_frame(out, span: str) -> Optional[float]:
+    """Device milliseconds launched while ``span`` was the innermost range,
+    per sampled frame of the traced clips."""
+    _, row = _row(out, span)
+    frames = sum(u.frames for u in out.units[:out.traced_units])
+    return 1e3 * row.device_s / frames if row is not None and row.launches and frames else None
 
 
-if __name__ == "__main__":
-    raise SystemExit(main())
+def idle_share(out, span: str) -> Optional[float]:
+    """The share (%) of the traced window in which the first card was idle
+    while ``span`` was the innermost range open on the window's thread."""
+    table, row = _row(out, span)
+    if row is None or not row.calls or table.window_s <= 0:
+        return None
+    return 100.0 * row.idle_s / table.window_s
+
+
+def launches_per_call(out, span: str) -> Optional[float]:
+    """Device operations launched while ``span`` was the innermost range,
+    per call of it in the traced window."""
+    _, row = _row(out, span)
+    return row.launches / row.calls if row is not None and row.calls else None

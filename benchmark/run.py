@@ -10,7 +10,8 @@ beside their limits as the last lines of standard error, and one JSON
 result line last on standard output: the cell's end-to-end metrics, or
 with ``--trace 1`` its per-layer metrics from a traced run.  Exits 2
 without a result when CUDA is missing or has fewer cards than the cell
-asks for, and 3 when a JAX module or the JAX package was loaded.
+asks for, and 3 when a JAX module or the JAX package was loaded by the
+time the result is ready (its metrics read).
 """
 
 import time
@@ -55,11 +56,12 @@ def main(argv=None) -> int:
         return 2
     trace_path = os.path.join(tempfile.gettempdir(), f"bench_trace_{os.getpid()}.json")
     out = closed_loop.run(cell, args.seed, args.seconds, bool(args.trace), T_START, trace_path)
+    line, checks = outcome.report(cell, out, bool(args.trace))
+    # After the readers ran: what they or the model's counts load counts too.
     bad = outcome.forbidden_modules()
     if bad:
         print(f"loaded in the result's process: {', '.join(bad)}", file=sys.stderr)
         return 3
-    line, checks = outcome.report(cell, out, bool(args.trace))
     sys.stdout.flush()
     print("\n".join(checks), file=sys.stderr, flush=True)
     print(json.dumps(line), flush=True)

@@ -1,13 +1,15 @@
 """What a cell is made of, found by name: its entry in ``BENCHMARK.json``,
-its configuration file, its traffic mix (``traffic/<mix>.json``) and the
-readers of its per-layer metrics (``metrics/<metric>.py``)."""
+its configuration file, the model that file names (``models/<model>.py``),
+its traffic mix (``traffic/<mix>.json``) and the readers of its metrics
+(``metrics/<metric>.py``)."""
 
 from __future__ import annotations
 
+import functools
 import importlib.util
 import json
 from pathlib import Path
-from typing import Dict, List, NamedTuple
+from typing import List, Mapping, NamedTuple
 
 BENCH = Path(__file__).resolve().parent
 ROOT = BENCH.parent
@@ -40,38 +42,36 @@ def load(name: str, root: Path = ROOT) -> Cell:
 
 def make(name: str, chips: int, config_file, traffic: str, end_to_end: List[dict],
          per_layer: List[dict]) -> Cell:
-    """A cell of a configuration file and the mix ``traffic/<traffic>.json``."""
+    """A cell of a configuration file and the mix ``traffic/<traffic>.json``;
+    raises KeyError for a configuration file without a ``model``."""
     with open(config_file) as f:
         config = json.load(f)
+    model(config)
     with open(BENCH / "traffic" / f"{traffic}.json") as f:
         mix = json.load(f)
     return Cell(name=name, chips=chips, config=config, traffic=mix, end_to_end=end_to_end,
                 per_layer=per_layer)
 
 
-def metric_reader(name: str):
-    """The ``read(ctx)`` function of ``metrics/<name>.py``."""
-    path = BENCH / "metrics" / f"{name}.py"
-    module_name = "benchmark_metric_" + name.replace(".", "_")
-    spec = importlib.util.spec_from_file_location(module_name, path)
+@functools.lru_cache(maxsize=None)
+def _load(folder: str, name: str):
+    """The module ``<folder>/<name>.py`` of the benchmark, loaded once."""
+    path = BENCH / folder / f"{name}.py"
+    spec = importlib.util.spec_from_file_location(f"benchmark_{folder}_{name.replace('.', '_')}",
+                                                  path)
     module = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(module)
-    return module.read
+    return module
 
 
-def detector_kwargs(detector: Dict, reference: bool = False) -> Dict:
-    """A configuration file's ``detector`` object as the keyword arguments
-    of the port's ``DetectorConfig`` (``reference``: of the reference's
-    copy), its ``mtcnn`` object made that package's ``MTCNNConfig`` and
-    lists made tuples."""
-    if reference:
-        from benchmark.reference.config import MTCNNConfig
-    else:
-        from truely_tpu_torch.config import MTCNNConfig
+def metric_reader(name: str):
+    """The ``read(cell, outcome)`` function of ``metrics/<name>.py``."""
+    return _load("metrics", name).read
 
-    def tup(d):
-        return {k: tuple(v) if isinstance(v, list) else v for k, v in d.items()}
 
-    kw = tup({k: v for k, v in detector.items() if k != "mtcnn"})
-    kw["mtcnn"] = MTCNNConfig(**tup(detector["mtcnn"]))
-    return kw
+def model(config: Mapping):
+    """The module ``models/<model>.py`` that a configuration file names by
+    its ``model`` key: the program it runs, its weights, its reference,
+    its check and its counts (``PERF.md`` §3 lists what a model module
+    gives)."""
+    return _load("models", config["model"])

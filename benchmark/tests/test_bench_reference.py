@@ -16,6 +16,7 @@ from benchmark.reference.config import DetectorConfig as RefConfig
 from benchmark.reference.layers import fp8_matmuls
 
 BENCH = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+FACENET = spec.model({"model": "facenet"})
 
 
 def config(name, **det):
@@ -37,14 +38,14 @@ def frames():
 
 
 def ref_config(c):
-    return RefConfig(**spec.detector_kwargs(c["detector"], reference=True))
+    return RefConfig(**FACENET.detector_kwargs(c["detector"], reference=True))
 
 
 def port(c, trees, mesh=None):
     from truely_tpu_torch.config import DetectorConfig
     from truely_tpu_torch.pipeline.detector import Detector
 
-    return Detector(DetectorConfig(**spec.detector_kwargs(c["detector"])), params=trees,
+    return Detector(DetectorConfig(**FACENET.detector_kwargs(c["detector"])), params=trees,
                     device="cpu", mesh=mesh)
 
 
@@ -97,7 +98,7 @@ def test_control_fails_the_limits(trees, frames, name, kind):
     want = run(nets, frames, 7, rc, yuv=True, device="cpu")
     with fp8_matmuls():
         low = run(nets, frames, 7, rc, yuv=True, device="cpu")
-    assert not check.judge(check.numbers(kind, [low], [want]), c["limits"][kind])
+    assert not check.judge(check.numbers(kind, [low], [want]), c["limits"])
 
 
 def test_fp8_operand_rounds_to_e4m3():

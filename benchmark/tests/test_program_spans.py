@@ -1,15 +1,18 @@
 """The program's ranges read from hand-built Chrome events: device work
 put down to the innermost range open on the launching thread when its
 runtime call started (matched by ``correlation``), idle gaps split by the
-innermost range open on the window's thread, and the readings, each None
-without its span."""
+innermost range open on the window's thread, and the four readings of a
+named span, each None without its span, through the readers that name
+them."""
 
 from typing import NamedTuple
 
 import pytest
 
-from benchmark import program_spans
-from benchmark.program_spans import OUTSIDE, ranges, readings
+from benchmark import program_spans, spec
+from benchmark.outcome import Outcome
+from benchmark.program_spans import OUTSIDE, ranges
+from benchmark.trace import TraceSummary
 
 PID, MAIN, OTHER = 1, 10, 11
 
@@ -56,7 +59,7 @@ def test_device_and_idle_go_to_the_innermost_range():
     t = ranges(events())
     us = 1e-6
     assert t.window_s == pytest.approx(100 * us)
-    assert t.busy_s == pytest.approx(29 * us) and t.idle_s == pytest.approx(71 * us)
+    assert t.idle_s == pytest.approx(71 * us)  # busy 5-8, 21-25, 50-70, 92-94
     got = {n: (r.device_s / us, r.launches, r.idle_s / us, r.calls) for n, r in t.ranges.items()}
     want = {
         "detector.analyze": (3, 1, 25, 1),   # K1; idle 2-5, 8-10, 30-40, 80-85, 95-100
@@ -71,8 +74,6 @@ def test_device_and_idle_go_to_the_innermost_range():
         assert got[name] == pytest.approx(row), name
     # every idle second is put down once: the ranges' and the rest add up
     assert sum(r.idle_s for r in t.ranges.values()) == pytest.approx(t.idle_s)
-    # the stages (10 + 10), K1 (3) and the copy (4); not the fold
-    assert t.covered_s == pytest.approx(27 * us)
 
 
 def test_launches_from_another_thread_use_its_ranges():
@@ -100,33 +101,93 @@ def test_nothing_to_read():
     assert ranges(no_device) is None
 
 
-class Span(NamedTuple):
-    name: str
-    start: float
-    end: float
+class Clip(NamedTuple):
+    frames: int
 
 
-def test_readings():
-    t = ranges(events())
-    host = [Span("detector.stage", 0.0, 0.002), Span("detector.stage", 1.0, 1.004),
-            Span("detector.sync", 2.0, 2.001)]
-    got = readings(t, traced_frames=10, host_spans=host, host_frames=4)
-    assert got["stage_host_ms.batch"] == pytest.approx(1.5)
-    assert got["sync_host_ms.batch"] == pytest.approx(0.25)
-    assert got["stage_idle.batch"] == pytest.approx(16.0)
-    assert got["fold_idle.batch"] == pytest.approx(8.0)
-    assert got["pyramid_device_ms.batch"] == pytest.approx(1e-3)
-    assert got["cascade_device_ms.batch"] == pytest.approx(1e-3)
-    assert got["embed_device_ms.batch"] is None            # no detector.embed range
-    assert got["fold_launches"] == 1.0
-    assert set(got) == set(program_spans.READINGS)
+def outcome(table, host_spans, traced_frames=10, host_frames=4):
+    """A run's ``Outcome`` with ``table`` as its trace's ranges, one traced
+    clip of ``traced_frames`` and one after the trace of ``host_frames``
+    whose program spans were ``host_spans``."""
+    summary = TraceSummary(window_s=table.window_s if table else 0.0, busy_s=0.0, cards=1,
+                           device_ops=[], idle_gaps=[], ranges=table)
+    return Outcome(setup_s=1.0, window_s=1.0, units=[Clip(traced_frames), Clip(host_frames)],
+                   traced_units=1, host_from=0.5, launches={}, spans=host_spans,
+                   trace_summary=summary, numbers={}, limits={}, attempted=2, failed=0,
+                   memory_peak_bytes=0, cards=1, checked=0)
 
 
-@pytest.mark.parametrize("name", sorted(program_spans.READINGS))
+HOST = {"detector.stage": [0.002, 0.004], "detector.sync": [0.001], "track_fold": [0.5]}
+# Each span reader's metric and what it reads from ``events()`` and ``HOST``.
+READERS = {
+    "stage_host_ms.batch": 1.5,        # 6 ms over the 4 frames after the trace
+    "sync_host_ms.batch": 0.25,
+    "stage_idle.batch": 16.0,          # 16 of the window's 100 us
+    "fold_idle.batch": 8.0,
+    "pyramid_device_ms.batch": 1e-3,   # 10 us over the 10 traced frames
+    "cascade_device_ms.batch": 1e-3,
+    "embed_device_ms.batch": None,     # no detector.embed range
+    "fold_launches": 1.0,
+}
+
+
+@pytest.mark.parametrize("name", sorted(READERS))
+def test_readings(name):
+    cell = spec.load("multiface_1080p_k4")
+    got = spec.metric_reader(name)(cell, outcome(ranges(events()), HOST))
+    assert got == (None if READERS[name] is None else pytest.approx(READERS[name]))
+
+
+def test_a_span_that_no_reader_names_is_read_alike():
+    """The four readings take any span by name: ``detector.analyze``'s K1
+    (3 us), idle 25 us and one call; its host spans 2 ms."""
+    out = outcome(ranges(events()), {"detector.analyze": [0.002]})
+    assert program_spans.device_ms_per_frame(out, "detector.analyze") == pytest.approx(3e-4)
+    assert program_spans.idle_share(out, "detector.analyze") == pytest.approx(25.0)
+    assert program_spans.launches_per_call(out, "detector.analyze") == 1.0
+    assert program_spans.host_ms_per_frame(out, "detector.analyze") == pytest.approx(0.5)
+
+
+@pytest.mark.parametrize("name", sorted(READERS))
 def test_each_reading_is_none_without_its_span(name):
     """The parent commit's trace holds no program range and it records no
     span: every reading is None there."""
-    assert readings(None, 10, [], 4)[name] is None
+    cell = spec.load("multiface_1080p_k4")
+    read = spec.metric_reader(name)
+    assert read(cell, outcome(None, {})._replace(trace_summary=None)) is None
     bare = [e for e in events() if not e["name"].startswith(("detector.", "mtcnn.", "tracks."))]
     bare.append(x("user_annotation", "other.range", 40, 40))
-    assert readings(ranges(bare), 10, [Span("other.range", 0.0, 1.0)], 4)[name] is None
+    assert read(cell, outcome(ranges(bare), {"other.range": [1.0]})) is None
+
+
+def test_a_traced_run_keeps_the_ranges_and_the_spans(monkeypatch, tmp_path):
+    """A traced tiny CPU run keeps the table of the program's ranges in its
+    trace summary and the spans after the trace in ``Outcome.spans``, and
+    the readings read them; an untraced run has neither.  The CPU's
+    operations stand in for the device's, and the trace covers the first
+    clip only, so that the clips after it are the spans' clips."""
+    import time
+
+    import torch
+
+    from benchmark import check, closed_loop, spec, trace
+    from benchmark.tests.conftest import tiny
+
+    monkeypatch.setattr(trace, "DEVICE_CATEGORIES", ("cpu_op",))
+    monkeypatch.setattr(closed_loop, "TRACE_SECONDS", 0.0)
+    cell = tiny(spec.load("multiface_1080p_k4"))
+    cell.traffic["lengths"].update(low=24, high=24, strata=1)
+    path = tmp_path / "trace.json"
+    on, off = (closed_loop.run(cell, 2**32 + 9, 6.0, traced, time.perf_counter(), str(path),
+                               device=torch.device("cpu")) for traced in (True, False))
+    assert check.judge(on.numbers, on.limits) and check.judge(off.numbers, off.limits)
+    assert len(on.units) > on.traced_units >= 1
+    assert {"detector.analyze", "detector.stage", "mtcnn.cascade",
+            "tracks.fold"} <= set(on.trace_summary.ranges.ranges)
+    assert {"track_fold", "detector.stage", "mtcnn.cascade", "tracks.fold"} <= set(on.spans)
+    read = {name: spec.metric_reader(name) for name in READERS}
+    assert read["stage_host_ms.batch"](cell, on) > 0
+    assert read["stage_idle.batch"](cell, on) is not None
+    assert off.trace_summary is None and set(off.spans) == {"track_fold"}
+    assert {name: r(cell, off) for name, r in read.items()} == dict.fromkeys(READERS)
+    assert not path.exists()  # the summary deleted the trace

@@ -1,11 +1,12 @@
 """The device trace of a ``--trace 1`` run: ``torch.profiler`` around part
 of the window, its Chrome trace read back into the device's busy time per
-card, device time per kernel name, and the idle gaps labelled by what the
-host was doing.
+card, device time per kernel name, the idle gaps labelled by what the
+host was doing, and the table of the program's own ranges
+(``program_spans.ranges``).
 
-The trace reader is a frozen copy of ``device_op_table`` of
-``truely_tpu_torch/utils/profiling.py`` (complete events whose category
-ran on the device), extended to keep each event's interval and card.
+A device event is a complete event whose category ran on the device
+(``DEVICE_CATEGORIES``); ``device_events`` and ``busy_and_gaps`` are the
+one reading of them that ``summarize`` and ``program_spans`` share.
 """
 
 from __future__ import annotations
@@ -14,7 +15,7 @@ import contextlib
 import gzip
 import json
 import os
-from typing import Dict, List, NamedTuple, Optional, Tuple
+from typing import Dict, Iterator, List, NamedTuple, Optional, Tuple
 
 # Kineto's categories of the events that ran on the device.
 DEVICE_CATEGORIES = ("kernel", "gpu_memcpy", "gpu_memset")
@@ -31,14 +32,15 @@ class TraceSummary(NamedTuple):
     cards: int
     device_ops: List[Tuple[str, float, int]]   # (name, seconds, count), longest first
     idle_gaps: List[Tuple[str, float]]    # (what the host did, idle seconds), longest first
+    ranges: Optional[object] = None       # program_spans.Table of the program's ranges
 
 
 class Tracer:
     """torch.profiler (host and CUDA activity) from ``start()`` to
     ``stop()``, inside a ``bench.window`` range; ``span(name)`` marks a
     benchmark span on the host.  ``stop()`` waits for the device and
-    writes the Chrome trace to ``path``; ``summary()`` reads it back and
-    deletes it."""
+    writes the Chrome trace to ``path``; ``summary()`` reads it back, with
+    the table of the program's ranges, and deletes it."""
 
     def __init__(self, path: str):
         self.path = path
@@ -73,10 +75,14 @@ class Tracer:
         self.on = False
 
     def summary(self, cards: int) -> Optional[TraceSummary]:
+        from benchmark import program_spans  # which imports this module
+
         if self.on:
             self.stop()
         try:
-            return summarize(load_events(self.path), cards)
+            events = load_events(self.path)
+            s = summarize(events, cards)
+            return s._replace(ranges=program_spans.ranges(events)) if s is not None else None
         finally:
             remove(self.path)
 
@@ -100,6 +106,34 @@ def _union(intervals: List[Tuple[float, float]]) -> List[Tuple[float, float]]:
 
 def _clip(intervals, lo: float, hi: float):
     return [(max(s, lo), min(e, hi)) for s, e in intervals if e > lo and s < hi]
+
+
+def device_events(events: List[dict], lo: float, hi: float
+                  ) -> Iterator[Tuple[dict, float, float, object]]:
+    """(event, start, end, card) of each device event that overlaps the
+    window [lo, hi) (microseconds)."""
+    for e in events:
+        if e.get("ph") != "X" or e.get("cat") not in DEVICE_CATEGORIES:
+            continue
+        s, d = float(e["ts"]), float(e.get("dur", 0))
+        if s + d <= lo or s >= hi:
+            continue
+        yield e, s, s + d, (e.get("args") or {}).get("device", e.get("pid"))
+
+
+def busy_and_gaps(per_card: Dict[object, List[Tuple[float, float]]], lo: float, hi: float
+                  ) -> Tuple[Dict[object, List[Tuple[float, float]]], List[Tuple[float, float]]]:
+    """Each card's busy intervals in the window (the union of its device
+    events' intervals, cut to [lo, hi)) and the idle gaps of the first
+    card."""
+    busy = {c: _union(_clip(iv, lo, hi)) for c, iv in per_card.items()}
+    first = busy[sorted(busy, key=str)[0]]
+    gaps, t = [], lo
+    for s, e in first + [(hi, hi)]:
+        if s > t:
+            gaps.append((t, s))
+        t = max(t, e)
+    return busy, gaps
 
 
 def _labels(gaps: List[Tuple[float, float]], host: List[dict]) -> Dict[str, float]:
@@ -136,28 +170,16 @@ def summarize(events: List[dict], cards: Optional[int] = None) -> Optional[Trace
     lo, hi = float(w["ts"]), float(w["ts"]) + float(w["dur"])
     per_card: Dict[object, List[Tuple[float, float]]] = {}
     ops: Dict[str, List[float]] = {}
-    for e in events:
-        if e.get("ph") != "X" or e.get("cat") not in DEVICE_CATEGORIES:
-            continue
-        s, d = float(e["ts"]), float(e.get("dur", 0))
-        if s + d <= lo or s >= hi:
-            continue
-        card = (e.get("args") or {}).get("device", e.get("pid"))
-        per_card.setdefault(card, []).append((s, s + d))
+    for e, s, end, card in device_events(events, lo, hi):
+        per_card.setdefault(card, []).append((s, end))
         bucket = ops.setdefault(e.get("name", "?"), [0.0, 0])
-        bucket[0] += (min(s + d, hi) - max(s, lo)) / 1e6
+        bucket[0] += (min(end, hi) - max(s, lo)) / 1e6
         bucket[1] += 1
     if not per_card:
         return None
     n = max(cards or 0, len(per_card))
-    busy = {c: _union(_clip(iv, lo, hi)) for c, iv in per_card.items()}
+    busy, gaps = busy_and_gaps(per_card, lo, hi)
     busy_s = sum(e - s for iv in busy.values() for s, e in iv) / 1e6 / n
-    first = busy[sorted(busy, key=str)[0]]
-    gaps, t = [], lo
-    for s, e in first + [(hi, hi)]:
-        if s > t:
-            gaps.append((t, s))
-        t = max(t, e)
     host = [e for e in events if e.get("ph") == "X" and e.get("cat") in HOST_CATEGORIES
             and e.get("pid") == w.get("pid")]
     host = [dict(e, ts=float(e["ts"]), dur=float(e.get("dur", 0))) for e in host]
