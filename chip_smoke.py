@@ -49,7 +49,11 @@ Phases, in order; any failure raises and exits non-zero:
    warm-up cycle, eight timed batches; K1, K2, K4, K5 and not K3; the
    ladder must climb).  Each prints sampled frames/s, active tracks and
    per-track scores, and the stage times of one batch (cascade, tail,
-   track fold);
+   track fold); then the classifier path: ``analyze_i420_tracks`` at K=4
+   under the propagate path's conditions with ``DetectorConfig.classifier``
+   set (a one-member ensemble of seeded EfficientNet-B7 nets), one warm-up
+   cycle and four timed batches: K7 (the classifier's crop) once per
+   batch, every result's crop mask and logits sane;
 7. end to end, stream path: ``StreamScheduler`` with 8 streams x 4 frames
    a step at 1080p, I420, each stream its own stable content, single-face
    at the defaults, at K=4 and at "auto", and multi-face at K=4 (the
@@ -201,9 +205,12 @@ PROP_THRESHOLDS = (0.0, 0.0, 0.0)
 # and the propagate path would only run its fallback.  Its runs scale both
 # regression heads by this factor: refined boxes stay near their candidates.
 PROP_REGRESSION_SCALE = 0.1
-SCORE, PROPAGATE, MULTIFACE, STREAM, FILE, SERVE, PARALLEL, NATIVE = (
-    "score", "propagate", "multiface", "stream", "file", "serve", "parallel", "native")
-PATHS = (SCORE, PROPAGATE, MULTIFACE, STREAM, FILE, SERVE)
+SCORE, PROPAGATE, MULTIFACE, STREAM, FILE, SERVE, PARALLEL, NATIVE, CLASSIFIER = (
+    "score", "propagate", "multiface", "stream", "file", "serve", "parallel", "native",
+    "classifier")
+PATHS = (SCORE, PROPAGATE, MULTIFACE, STREAM, FILE, SERVE, CLASSIFIER)
+# The classifier path's crop (K7) side and box growth (a third).
+CLASSIFIER_SIZE, CLASSIFIER_MARGIN = 380, 3
 # The file path: a 1080p uncompressed I420 AVI at fps 14 (sample interval 2,
 # so unsampled frames are skipped, or carried to the writer), 128 frames:
 # 64 sampled frames, two batches of 32; read by 8 streams at once.
@@ -741,6 +748,25 @@ def kernel_forms(device) -> List[Form]:
             nbytes=pixels_read * 3 + bounds.numel() * 4 + b * k * o * o * 3 * 4,
             ops=b * k * o * o * 3 * 9))
 
+    # K7: the classifier's crop of the multi-face path's T = 4 boxes a
+    # frame, a fifth masked, each grown by a third and put on a 380x380
+    # canvas in bf16.  Bytes: the output of every slot, and each valid
+    # crop's grown source rectangle read once (three bytes a pixel); no
+    # operations counted (integer sums of a few taps a value).
+    from truely_tpu_torch.ops import crop_classifier as k7
+
+    t, s_ = MAX_TRACKS, CLASSIFIER_SIZE
+    cboxes = random_boxes(g_multi, b, t, h, w, device, clusters=t)
+    keep = torch.rand((b, t), generator=g_multi, device=device) > 0.2
+    rects = [k7.geometry(box, h, w, s_, CLASSIFIER_MARGIN) for box, on in zip(
+        cboxes.reshape(-1, 4).tolist(), keep.flatten().tolist()) if on]
+    reads = sum((r.y1 - r.y0) * (r.x1 - r.x0) for r in rects if r is not None)
+    forms.append(Form(
+        "crop_classifier", f"B={b} T={t} S={s_}", (CLASSIFIER,),
+        lambda: k7.crop_classifier(frames, cboxes, keep, s_, CLASSIFIER_MARGIN, False),
+        lambda: k7.crop_classifier_plain(frames, cboxes, keep, s_, CLASSIFIER_MARGIN, False),
+        None, nbytes=b * t * s_ * s_ * 3 * 2 + 3 * reads, ops=0.0))
+
     # K6: the track fold of a batch, held to its plain version (the ATen
     # loop, on the card too) by ``fold_held``.  The multi-face path's and
     # the file path's (one stream, 32 frames, T = K = 4, bf16 512-d
@@ -825,9 +851,13 @@ SOURCES = {
                                "truely_tpu/ops/crop_area_fused.py:155"),
     # no Pallas kernel: the JAX package folds tracks with a lax.scan
     "track_timeline": ("truely_tpu_torch/csrc/tracks.cu", "truely_tpu/pipeline/tracks.py:209"),
+    # no counterpart: the JAX package has no classifier
+    "crop_classifier": ("truely_tpu_torch/csrc/crop_classifier.cu", "none"),
 }
-# K6, the track fold, runs on the multi-face paths alone.
+# K6, the track fold, runs on the multi-face paths alone; K7, the
+# classifier's crop, on the classifier path alone.
 TRACK_FOLD = "track_timeline"
+CLASSIFIER_CROP = "crop_classifier"
 # K3's prep: counted apart from its crops, and reported beside them.
 K3_PREP = "crop_area_integral"
 K3_PARTS = ("crop_resize_area", K3_PREP)
@@ -836,6 +866,7 @@ K3_PARTS = ("crop_resize_area", K3_PREP)
 MAIN_PATH = {name: SCORE for name in (*SOURCES, K3_PREP)}
 MAIN_PATH["crop_resize_area_fused"] = PROPAGATE
 MAIN_PATH[TRACK_FOLD] = MULTIFACE
+MAIN_PATH[CLASSIFIER_CROP] = CLASSIFIER
 
 
 def kernel_phase(forms: List[Form]) -> List[dict]:
@@ -978,7 +1009,7 @@ def launch_floor(device) -> Dict[str, float]:
 
 
 def launch_counters():
-    from truely_tpu_torch.ops import crop_area_fused, nms, resize, yuv
+    from truely_tpu_torch.ops import crop_area_fused, crop_classifier, nms, resize, yuv
     from truely_tpu_torch.pipeline import tracks
 
     return {"i420_to_bgr": yuv.i420_to_bgr, "nms_masked_batch": nms.nms_masked_batch,
@@ -986,7 +1017,8 @@ def launch_counters():
             K3_PREP: resize.crop_area_integral,
             "crop_resize_bilinear": resize.crop_resize_bilinear,
             "crop_resize_area_fused": crop_area_fused.crop_resize_area_fused,
-            TRACK_FOLD: tracks.track_timeline}
+            TRACK_FOLD: tracks.track_timeline,
+            CLASSIFIER_CROP: crop_classifier.crop_classifier}
 
 
 def reset_launches() -> dict:
@@ -1004,10 +1036,11 @@ def read_launches(counters: dict) -> Dict[str, int]:
 def require_launched(launches: Dict[str, int], label: str, k5: bool) -> None:
     """K1, K2, K4 and either K5 (``k5``) or both K3 kernels launched, and
     the other stage-crop kernel not.  K6 is checked against the folds
-    (``require_folds``)."""
+    (``require_folds``), K7 by the classifier path."""
     crops = ("crop_resize_area_fused",) if k5 else K3_PARTS
     unused = K3_PARTS if k5 else ("crop_resize_area_fused",)
-    silent = [k for k, v in launches.items() if v <= 0 and k not in (*unused, TRACK_FOLD)]
+    silent = [k for k, v in launches.items()
+              if v <= 0 and k not in (*unused, TRACK_FOLD, CLASSIFIER_CROP)]
     require(not silent, f"{label}: kernels not launched: {silent}")
     require(all(launches[k] == 0 for k in unused),
             f"{label}: {'K3' if k5 else 'K5'} launched where {crops} should run")
@@ -1380,6 +1413,44 @@ def multiface_phase() -> Dict[str, int]:
             multiface_stage_times(det, step, k=4)  # warm
             log_stages("K=4", multiface_stage_times(det, step, k=4))
     return total
+
+
+def classifier_phase() -> Dict[str, int]:
+    """The classifier on the multi-face path: ``analyze_i420_tracks`` at
+    K=4 under the propagate path's conditions with a one-member ensemble
+    (the seeded init), one warm-up cycle and four timed batches; K7 once
+    per batch, K1 once more per batch (the crops' frames), the crop mask
+    the slots with a face, finite logits and a score in [0, 1].  Returns
+    the timed run's launches."""
+    from truely_tpu_torch.config import ClassifierConfig, DetectorConfig, MTCNNConfig
+    from truely_tpu_torch.pipeline.detector import Detector
+
+    cfg = DetectorConfig(multi_face=True, max_tracks=MAX_TRACKS, detect_interval=4,
+                         mtcnn=MTCNNConfig(thresholds=PROP_THRESHOLDS),
+                         classifier=ClassifierConfig(ensemble=1))
+    b = cfg.frame_batch
+    det = steady_regression(Detector(cfg))
+    packed = stable_i420(b * 8, STEP_H, STEP_W, seed=35)
+    det.analyze_i420_tracks(packed[:4 * b], fps=FPS)
+    torch.cuda.synchronize()
+    counters = reset_launches()
+    t0 = time.perf_counter()
+    agg, per_track, state, got = det.analyze_i420_tracks(packed[4 * b:], fps=FPS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches(counters)
+    n, t = 4 * b, MAX_TRACKS
+    require(launches[CLASSIFIER_CROP] == 4, f"classifier: K7 launched {launches[CLASSIFIER_CROP]}")
+    require(got.mask.shape == (n, t) and got.logits.shape == (1, n, t) and got.mask.any(),
+            f"classifier: mask {got.mask.shape} {int(got.mask.sum())}, logits {got.logits.shape}")
+    require(bool(np.isfinite(got.logits).all()) and 0.0 <= got.score <= 1.0,
+            f"classifier: logits finite {np.isfinite(got.logits).all()}, score {got.score}")
+    crops, logits = int(got.mask.sum()), got.logits[0][got.mask]
+    log(f"classifier K=4: {n} sampled frames in {wall:.4f} s = {n / wall:.2f} sampled frames/s, "
+        f"{crops} crops ({crops / wall:.1f} a second through one B7); score {got.score:.4f}; "
+        f"logits {float(logits.min()):.3f}..{float(logits.max()):.3f}")
+    log(json.dumps({"path": CLASSIFIER, "launches": launches}))
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -2776,7 +2847,8 @@ def main(argv=None) -> int:
     launch_floor("cuda")
     if not args.kernels_only:
         launches = {SCORE: e2e_phase(args.profile), PROPAGATE: propagate_phase(args.profile),
-                    MULTIFACE: multiface_phase(), STREAM: stream_phase(), FILE: file_phase(),
+                    MULTIFACE: multiface_phase(), CLASSIFIER: classifier_phase(),
+                    STREAM: stream_phase(), FILE: file_phase(),
                     SERVE: serve_phase()}
         xcheck_phase()
         launches[PARALLEL] = parallel_phase()

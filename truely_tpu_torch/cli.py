@@ -102,6 +102,20 @@ def _warn_if_seeded(detector) -> None:
               "running with seeded random weights — scores are not meaningful", file=sys.stderr)
 
 
+def _classifier(args):
+    """The ``--classifier`` option's ``ClassifierConfig`` (None without it),
+    or False after printing why it cannot run."""
+    from truely_tpu_torch.config import ClassifierConfig
+
+    if not args.classifier:
+        return None
+    if not args.multi_face:
+        print("error: --classifier runs on the multi-face path: add --multi-face",
+              file=sys.stderr)
+        return False
+    return ClassifierConfig()
+
+
 def cmd_analyze(args) -> int:
     from truely_tpu_torch.config import DetectorConfig, MTCNNConfig
 
@@ -109,12 +123,14 @@ def cmd_analyze(args) -> int:
         # Fail before paying model init and device attach.
         print(f"error: could not open video: {args.video}", file=sys.stderr)
         return 1
-    if not _check_batch(args):
+    classifier = _classifier(args)
+    if not _check_batch(args) or classifier is False:
         return 1
     config = DetectorConfig(
         frame_batch=args.batch,
         reference_compat=not args.corrected,
         multi_face=args.multi_face,
+        classifier=classifier,
         yuv_ingest=not args.no_yuv,
         detect_interval=args.detect_interval,
         propagate_fallback=not args.no_propagate_fallback,
@@ -129,11 +145,17 @@ def cmd_analyze(args) -> int:
     if args.multi_face:
         # Per-track scoring; the aggregate is the max over tracks.
         try:
-            score, per_track, _ = detector.analyze_video_multiface(args.video, args.output)
+            result = detector.analyze_video_multiface(args.video, args.output)
         except (IOError, OSError) as e:
             print(f"error: {e}", file=sys.stderr)
             return 1
+        score, per_track = result[:2]
         payload = {"fakeScore": int(score), "trackScores": [int(s) for s in per_track]}
+        if classifier is not None:
+            got = result[3]
+            payload["classifierScore"] = float(got.score)
+            payload["classifierMemberScores"] = [float(s) for s in got.member_scores]
+            payload["classifiedCrops"] = int(got.mask.sum())
         if args.output:
             payload["outputPath"] = args.output
         print(json.dumps(payload, indent=None if args.compact else 2))
@@ -264,11 +286,13 @@ def cmd_serve(args) -> int:
 
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s - %(name)s - %(levelname)s - %(message)s")
-    if not _check_batch(args):
+    classifier = _classifier(args)
+    if not _check_batch(args) or classifier is False:
         return 1
     config = DetectorConfig(
         frame_batch=args.batch,
         multi_face=args.multi_face,
+        classifier=classifier,
         detect_interval=args.detect_interval,
         mtcnn=MTCNNConfig(stage_crop_quant=args.crop_quant),
     )
@@ -314,6 +338,10 @@ def main(argv=None) -> int:
     p.add_argument("--multi-face", action="store_true",
                    help="score every tracked face (aggregate = max over tracks) instead of "
                         "the reference's first face only; prints per-track scores")
+    p.add_argument("--classifier", action="store_true",
+                   help="with --multi-face: also score every face crop with the DFDC winner's "
+                        "classifier (seven EfficientNet-B7 nets, the confident strategy; "
+                        "seeded weights)")
     p.add_argument("--draw", choices=("all", "flagged-only"), default="all",
                    help="annotated-output draw policy: 'all' = the reference contract "
                         "(red/green box on every sampled frame with a face); 'flagged-only' "
@@ -382,6 +410,9 @@ def main(argv=None) -> int:
                    help="torch device to run on (default cuda)")
     p.add_argument("--multi-face", action="store_true",
                    help="per-track scoring for /analyze-* (aggregate = max over tracks)")
+    p.add_argument("--classifier", action="store_true",
+                   help="with --multi-face: /analyze-video also returns the DFDC winner's "
+                        "classifier score (classifierScore)")
     p.add_argument("--crop-quant", type=int, default=4,
                    help="stage-crop box grid (1 = exact; see analyze)")
     p.add_argument("--detect-interval", type=_interval_arg, default=1,

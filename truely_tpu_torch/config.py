@@ -16,7 +16,7 @@ JAX package's ``crop_fused2.py`` (version 2) serves.
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
 
 
 @dataclasses.dataclass(frozen=True)
@@ -49,6 +49,29 @@ class MTCNNConfig:
     # Exact (q == 1) stage crops through kernel K5 (1) or kernel K3 (0, 2).
     # Both are bit-equal; q > 1 always takes K3.
     use_fused_crops: int = 0
+
+
+@dataclasses.dataclass(frozen=True)
+class ClassifierConfig:
+    """The DFDC winner's classifier on the multi-face path
+    (github.com/selimsef/dfdc_deepfake_challenge): every valid face crop
+    grown by ``box // margin`` on each side, resized so its long side is
+    ``input_size`` and centred on a square canvas (kernel K7), then each of
+    ``ensemble`` nets; a video's score is the mean over the nets of each
+    net's ``confident_strategy`` over its crops' probabilities."""
+
+    net: str = "tf_efficientnet_b7_ns"
+    input_size: int = 380
+    # The box grows by w // margin and h // margin on each side: a third.
+    margin: int = 3
+    ensemble: int = 7
+    # confident_strategy(pred, t=0.8): more than min_fakes crops (and more
+    # than len // 2.5) above fake_threshold: their mean; else more than 90%
+    # below real_threshold: their mean; else the mean of all.
+    fake_threshold: float = 0.8
+    real_threshold: float = 0.2
+    min_fakes: int = 11
+    compute_dtype: str = "bfloat16"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -105,6 +128,9 @@ class DetectorConfig:
     # eligible stream through the native libav decoder); other files decode
     # to BGR on the host.  Results are the same either way.
     yuv_ingest: bool = True
+    # The DFDC classifier on every multi-face step's valid face crops
+    # (``pipeline/classifier.py``); None: not run.
+    classifier: Optional[ClassifierConfig] = None
 
     def sample_interval(self, fps: int) -> int:
         return max(1, int(fps / self.sample_hz))

@@ -27,7 +27,8 @@ import torch
 from truely_tpu_torch.media.host_build import compile_all, library_path
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
-SOURCES = ("yuv", "nms", "crop_area", "crop_bilinear", "crop_area_fused", "tracks")
+SOURCES = ("yuv", "nms", "crop_area", "crop_bilinear", "crop_area_fused", "tracks",
+           "crop_classifier")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

@@ -18,8 +18,12 @@ and the frames between refine the keyframe's box (``refine_faces``).
 counterparts: up to ``max_tracks`` faces per frame are embedded
 (``multiface_step``) and folded into per-track states
 (``pipeline/tracks.py``), with the same keyframe cycles and "auto" ladder
-(``refine_faces_multi`` between keyframes).  The ``*_refine`` steps are the
-stream scheduler's: every row refines its stream's carried seeds.
+(``refine_faces_multi`` between keyframes).  With
+``DetectorConfig.classifier`` set, every segment's valid face crops also go
+through the DFDC classifier (``pipeline/classifier.py``) and the multi-face
+entry points return its ``Classified`` result as a fourth item.  The
+``*_refine`` steps are the stream scheduler's: every row refines its
+stream's carried seeds.
 
 The file entry points, ``analyze_video``, ``analyze_video_multiface`` and
 ``run``, read a video through ``media.decode.VideoReader`` (packed I420
@@ -51,6 +55,7 @@ from truely_tpu_torch.media.encode import VideoWriter
 from truely_tpu_torch.media.native import i420_to_bgr_host
 from truely_tpu_torch.media.overlay import annotate_frame, draw_landmarks
 from truely_tpu_torch.models.weights import load_all
+from truely_tpu_torch.ops.crop_classifier import crop_classifier
 from truely_tpu_torch.ops.resize import crop_resize_bilinear
 from truely_tpu_torch.ops.temporal import (
     TemporalResult, TemporalState, init_temporal_state, temporal_consistency,
@@ -551,6 +556,10 @@ class Detector:
         self.auto_interval_current = 1
         # Segments that ``propagate_fallback`` re-ran through the full step.
         self.fallback_segments = 0
+        # The classifier's valid crops (once per video, whatever the
+        # ensemble) and rows run (masked ones included).
+        self.classified_crops = 0
+        self.classifier_rows = 0
         self.dtype = getattr(torch, self.config.compute_dtype)
         nets, given = load_all(params, weights_dir)
         # False: FaceNet is the seeded init, and its scores mean nothing.
@@ -561,6 +570,15 @@ class Detector:
             facenet=nets["facenet"], landmark=nets["landmark68"],
         )
         self.embedding_dim = nets["facenet"].last_linear.out_features
+        # The classifier's ensemble (``pipeline/classifier.py``), or None.
+        self.classifier = None
+        if cfg.classifier is not None:
+            if not cfg.multi_face:
+                raise ValueError("the classifier runs on the multi-face path: set multi_face")
+            from truely_tpu_torch.pipeline.classifier import load_members
+
+            self.classifier = load_members(cfg.classifier, (params or {}).get("classifier"),
+                                           self.device)
         # (mesh, axis) -> the nets' replicas; (mesh, axis, ...) -> sharded steps
         self._sharded_cache: dict = {}
         if mesh is not None:
@@ -649,6 +667,33 @@ class Detector:
                 run_length_threshold=self.config.run_length_threshold,
             )
 
+    def classify(self, dev: torch.Tensor, boxes: torch.Tensor, valid: torch.Tensor,
+                 n_valid: int, yuv: bool) -> torch.Tensor:
+        """The classifier on a segment's first ``n_valid`` rows: the frames
+        (kernel K1 for packed I420), the crops of their (B, T) boxes where
+        ``valid`` (kernel K7), each member's forward.  Returns the (M,
+        n_valid, T) float32 logits, on the device."""
+        cfg, cc = self.config, self.config.classifier
+        t = boxes.shape[1]
+        with torch.inference_mode():
+            with span("classifier.crop"):
+                frames = to_frames(dev[:n_valid], cfg) if yuv else dev[:n_valid]
+                crops = crop_classifier(frames, boxes[:n_valid], valid[:n_valid], cc.input_size,
+                                        cc.margin, rgb_in=not cfg.reference_compat)
+            with span("classifier.net"), precision(getattr(torch, cc.compute_dtype)):
+                logits = torch.stack([net(crops) for net in self.classifier])
+        self.classifier_rows += n_valid * t
+        return logits.reshape(len(self.classifier), n_valid, t)
+
+    def _collector(self):
+        """A ``pipeline.classifier.Collector`` for one video, or None
+        without the classifier."""
+        if self.classifier is None:
+            return None
+        from truely_tpu_torch.pipeline.classifier import Collector
+
+        return Collector(self)
+
     def track_scores(self, state: TrackState, frame_count: int, fps: int) -> np.ndarray:
         return track_scores(state, frame_count, fps,
                             run_length_threshold=self.config.run_length_threshold,
@@ -676,7 +721,8 @@ class Detector:
         """Multi-face analysis of an in-memory (N, H, W, 3) uint8 BGR frame
         array: per-track consistency scoring.  Returns (aggregate score,
         the max over tracks; per-track scores (T,) int32; the final
-        ``TrackState`` of (T, ...) tensors)."""
+        ``TrackState`` of (T, ...) tensors), and with the classifier its
+        ``Classified`` result fourth."""
         return self._analyze_tracks(frames_bgr, fps, yuv=False)
 
     def analyze_i420_tracks(self, packed: np.ndarray, fps: int):
@@ -859,15 +905,19 @@ class Detector:
         cfg = self.config
         n = frames.shape[0]
         sampled = list(range(0, n, cfg.sample_interval(fps)))
+        cls = self._collector()
         with span("detector.analyze"):
             state = init_track_state(cfg.max_tracks, self.embedding_dim, device=self.device)
             for seg, (boxes, valid, emb) in self._segment_outputs(
                     self._segments(frames, sampled), yuv, multi_face=True):
                 state, _ = self.track_fold(state, boxes[None], valid[None], emb[None],
                                            seg.n_valid)
+                if cls is not None:
+                    cls.add(seg.dev, boxes, valid, seg.n_valid, yuv)
             with span("detector.fetch"):
                 per_track = self.track_scores(state, n, fps)[0]
-        return int(per_track.max(initial=0)), per_track, stream_state(state, 0)
+            result = (int(per_track.max(initial=0)), per_track, stream_state(state, 0))
+            return result if cls is None else result + (cls.finish(),)
 
     # ------------------------------------------------------------------
     # Files
@@ -1018,7 +1068,8 @@ class Detector:
         """Multi-face analysis of a video file: every tracked face gets its
         own consistency score and, with ``output_path``, its red or green
         box.  Returns (aggregate score, the max over tracks; per-track
-        scores (T,) int32; the final ``TrackState`` of (T, ...) tensors)."""
+        scores (T,) int32; the final ``TrackState`` of (T, ...) tensors),
+        and with the classifier its ``Classified`` result fourth."""
         cfg = self.config
         rgb = not cfg.reference_compat
         t = cfg.max_tracks
@@ -1030,6 +1081,7 @@ class Detector:
                       if output_path else None)
             state = init_track_state(t, self.embedding_dim, device=self.device)
             frame_count = 0
+            cls = self._collector()
 
             def encode_segment(seg: Segment, fetched):
                 t_boxes, t_upd, t_flag = fetched
@@ -1068,6 +1120,8 @@ class Detector:
                         break
                     state, outs = self.track_fold(state, boxes[None], valid[None], emb[None],
                                                   seg.n_valid)
+                    if cls is not None:
+                        cls.add(seg.dev, boxes, valid, seg.n_valid, reader.yuv_active)
                     frame_count += seg.n_frames
                     if wt is None:
                         continue
@@ -1085,21 +1139,30 @@ class Detector:
                 raise wt.err[0]
             with span("detector.fetch"):
                 per_track = self.track_scores(state, frame_count, meta.fps)[0]
-        return int(per_track.max(initial=0)), per_track, stream_state(state, 0)
+            result = (int(per_track.max(initial=0)), per_track, stream_state(state, 0))
+            return result if cls is None else result + (cls.finish(),)
 
     def run(self, video_path_one: str, video_path_two: str) -> int:
         """The reference's ``run()`` (server/model.py): the 0-100 fake
         score of ``video_path_one``, with the annotated video written to
         ``video_path_two``; 0 for a missing, empty or unreadable file.
         With ``config.multi_face`` the score is the max over face tracks."""
+        return self.run_classified(video_path_one, video_path_two)[0]
+
+    def run_classified(self, video_path_one: str,
+                       video_path_two: str) -> Tuple[int, Optional[float]]:
+        """``run``'s score and, with the classifier, the video's
+        classifier score (None without it, or where ``run`` gives 0 for an
+        unreadable file)."""
         if not os.path.exists(video_path_one) or os.path.getsize(video_path_one) == 0:
-            return 0
+            return 0, None
         try:
             if self.config.multi_face:
-                return self.analyze_video_multiface(video_path_one, video_path_two)[0]
-            return self.analyze_video(video_path_one, video_path_two).fake_score
+                result = self.analyze_video_multiface(video_path_one, video_path_two)
+                return result[0], result[3].score if len(result) > 3 else None
+            return self.analyze_video(video_path_one, video_path_two).fake_score, None
         except IOError:
-            return 0
+            return 0, None
 
     def warmup(self, height: int, width: int) -> None:
         """Warm the (height, width) bucket for ``run()`` and the server's
@@ -1108,7 +1171,8 @@ class Detector:
         BGR step, and the packed-I420 step when ``yuv_ingest`` and the
         shape can be I420; at K > 1 or "auto" also the cascade-only seed
         step and the propagate step, at the fixed K or the ladder's first
-        rung), and one temporal fold (multi-face: one track fold), so that
+        rung), and one temporal fold (multi-face: one track fold, and the
+        classifier on the full batch where it is set), so that
         cuDNN's algorithm choice, the first launch of every kernel and the
         caching allocator's first growth happen here.  Synchronises, and
         changes no state of the detector."""
@@ -1137,6 +1201,8 @@ class Detector:
             boxes, valid, emb = out
             state = init_track_state(cfg.max_tracks, self.embedding_dim, device=self.device)
             self.track_fold(state, boxes[None], valid[None], emb[None], b)
+            if self.classifier is not None:
+                self.classify(batch, boxes, valid, b, yuv)
         else:
             self.temporal(out, b, init_temporal_state(self.embedding_dim, self.device))
         if self.device.type == "cuda":

@@ -28,7 +28,7 @@ import logging
 import os
 import threading
 import time
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 import jinja2
 
@@ -210,10 +210,18 @@ class TruelyServer:
     def _weights_pretrained(self) -> bool:
         return bool(getattr(self.detector, "facenet_pretrained", False))
 
-    def _run_analysis(self, video_path: str, output_path: str) -> int:
+    def _classifying(self) -> bool:
+        """The detector runs the DFDC classifier (multi-face with
+        ``DetectorConfig.classifier`` set)."""
+        cfg = getattr(self.detector, "config", None)
+        return (bool(getattr(cfg, "multi_face", False))
+                and getattr(cfg, "classifier", None) is not None)
+
+    def _run_analysis(self, video_path: str, output_path: str) -> Tuple[int, Optional[float]]:
         """Serialized access to the device for the visual pipeline: the
         spans ``serve.lock_wait`` (the wait for the detector lock) and
-        ``serve.analysis`` (``detector.run``)."""
+        ``serve.analysis`` (``detector.run``).  Returns the score and, where
+        the detector classifies, the classifier's score (else None)."""
         # Imported at the first analysis, as the agents are at theirs: the
         # recorder imports torch, which the app itself does not.
         from truely_tpu_torch.utils.profiling import StageTimer
@@ -225,9 +233,12 @@ class TruelyServer:
             with timer.stage("serve.lock_wait"):
                 locked = self._detector_lock.acquire()
             with timer.stage("serve.analysis"):
-                score = self.detector.run(video_path, output_path)
+                if self._classifying():
+                    scores = self.detector.run_classified(video_path, output_path)
+                else:
+                    scores = self.detector.run(video_path, output_path), None
             ok = True
-            return score
+            return scores
         finally:
             if locked:
                 self._detector_lock.release()
@@ -553,7 +564,7 @@ class TruelyServer:
             return invalid
         output_path = self._output_path_for(video_path)
         try:
-            fake_score = self._run_analysis(video_path, output_path)
+            fake_score, classifier_score = self._run_analysis(video_path, output_path)
         except Exception as e:
             return Response.json({"error": f"Failed to analyze video: {e}"}, 500)
         if not os.path.exists(output_path) or os.path.getsize(output_path) == 0:
@@ -564,7 +575,10 @@ class TruelyServer:
             {"output_path": output_path, "fake_score": fake_score}
         )
         self._delete_input_later(video_path)
-        return Response.json({"fakeScore": fake_score, "resultId": result_id})
+        payload = {"fakeScore": fake_score, "resultId": result_id}
+        if classifier_score is not None:
+            payload["classifierScore"] = classifier_score
+        return Response.json(payload)
 
     def _news_analysis(self, audio_path: str, *, strict_keys: bool):
         """Shared fact-check flow.  ``strict_keys`` reproduces the contract
@@ -700,7 +714,7 @@ class TruelyServer:
                 return invalid
         output_path = self._output_path_for(video_path)
         try:
-            fake_score = self._run_analysis(video_path, output_path)
+            fake_score, _ = self._run_analysis(video_path, output_path)
         except Exception as e:
             return Response.json({"error": f"Video analysis failed: {e}"}, 500)
         if not os.path.exists(output_path) or os.path.getsize(output_path) == 0:
@@ -784,7 +798,9 @@ class TruelyServer:
         payload = None
         try:
             vp = (req.json() or {}).get("videoPath")
-            if isinstance(vp, str) and os.path.isfile(vp):
+            # The grouped runner's scheduler has no classifier: such jobs
+            # run solo.
+            if isinstance(vp, str) and os.path.isfile(vp) and not self._classifying():
                 batch_key = self._probe_bucket(vp)
                 payload = {"videoPath": vp}
         except ValueError:
